@@ -1,0 +1,501 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port (`src/repro_torch`) on one NVIDIA card.
+
+    python3 chip_smoke.py [--full-log2-edges 26]
+
+Phases; a failed check raises and the script exits non-zero:
+
+  1. build    compile the CUDA kernels of src/repro_torch/kernels/csrc with
+              nvcc (one process per source, all at once) into build/kernels/.
+  2. kernels  hold each kernel against its plain PyTorch version on the card,
+              on the smoke graph's real state: ebg_commit over a range of
+              blocks for ebv (frozen and window), hdrf and greedy — bitwise;
+              bsp_superstep on the CC, REACH (two-level and flat addressing,
+              the latter with negative values), SSSP and BFS streams (min,
+              bitwise) and the PageRank stream (sum, to rtol 1e-5).
+  3. pinned   the smoke graph and twitter_like through GraphPipeline on the
+              card (p=32, ebg_chunked): every number the JAX reference gives
+              on the CPU, exactly (RF and imbalances to 6 decimals).
+  4. full     the full-width path: R-MAT with LiveJournal's scale and skew
+              (2^22 vertices, 2^26 edges), p=32, ebg_chunked, then CC, REACH,
+              SSSP, BFS and PR through GraphPipeline. Kernel launch counts
+              are zeroed just before and read just after; the results are
+              checked against plain label-propagation / BFS / power-iteration
+              oracles on the card. Then each kernel is held against its plain
+              version at these shapes and timed beside its bound, its plain
+              version and the nearest single PyTorch call.
+
+Prints the card's name and power limit, the {"kernels": [...]} line, and last
+{"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
+It needs the repository around it and a CUDA card; without either it fails.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent
+OUT_DIR = ROOT / "chiprun_out"
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
+F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores (NVIDIA data sheet)
+PARTS = 32
+SMOKE = dict(num_vertices=1 << 14, num_edges=200_000, a=0.65, b=0.15, c=0.15, seed=7)
+FULL = dict(num_vertices=1 << 22, a=0.57, b=0.19, c=0.19, seed=0)
+SUM_RTOL, SUM_ATOL = 1e-5, 1e-8  # f32 sums in another order (atomics in the plain version)
+PR_ORACLE_RTOL = 1e-3  # f32 engine against a float64 power iteration
+
+# The JAX reference on the CPU (compute_backend="xla", all defaults,
+# p=32, ebg_chunked): (steps, messages) per program, CC with components.
+PINNED = {
+    "smoke": dict(
+        V=16_384, E=165_674, metrics=("3.426599", "1.030651", "1.018251"),
+        runs=dict(cc=(3, 47_726), sssp=(4, 52_741), bfs=(4, 52_741), reach=(4, 84_812),
+                  pr=(20, 956_080)),
+        components=11,
+    ),
+    "twitter_like": dict(
+        V=131_072, E=1_842_450, metrics=("3.400300", "1.013207", "1.010039"),
+        runs=dict(cc=(3, 342_275), sssp=(4, 397_727), bfs=(4, 397_727), reach=(4, 608_567),
+                  pr=(20, 6_848_920)),
+        components=46,
+    ),
+}
+PROGRAMS = ("cc", "sssp", "bfs", "reach", "pr")
+INF_I32 = 2**31 - 1
+
+
+def log(msg: str) -> None:
+    print(f"[chip_smoke {time.strftime('%H:%M:%S')}] {msg}", file=sys.stderr, flush=True)
+
+
+def check(cond, what: str) -> None:
+    if not cond:
+        raise AssertionError(what)
+
+
+def sync() -> None:
+    torch.cuda.synchronize()
+
+
+class Stages:
+    """Wall times of named stages, each ended by a device synchronize."""
+
+    def __init__(self):
+        self.s = {}
+
+    def __call__(self, name, fn, *a, **kw):
+        t = time.perf_counter()
+        out = fn(*a, **kw)
+        sync()
+        self.s[name] = time.perf_counter() - t
+        log(f"  {name}: {self.s[name]:.2f} s")
+        return out
+
+
+def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
+    """Mean device time of fn() over `reps` back-to-back calls (CUDA events)."""
+    for _ in range(warmup):
+        fn()
+    sync()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
+# ------------------------------------------------------------------ phases
+
+
+def phase_build():
+    from repro_torch.kernels import dispatch
+
+    t = time.perf_counter()
+    reports = dispatch.build_kernels()
+    secs = time.perf_counter() - t
+    OUT_DIR.mkdir(exist_ok=True)
+    (OUT_DIR / "ptxas.txt").write_text("\n".join(f"== {k}\n{v}" for k, v in reports.items()))
+    for name in dispatch.KERNEL_NAMES:
+        dispatch.load_library(name)
+    log(f"build: {sorted(reports)} in {secs:.1f} s")
+    return secs
+
+
+def compare_commit(state, st, sl, window):
+    """One block through the kernel and the plain version; bitwise."""
+    from repro_torch.kernels import ebg_commit as ebg
+
+    args = (*state, st.u[sl], st.v[sl], st.valid[sl], st.coef)
+    kw = dict(balance=st.balance, window=window,
+              wu=None if st.wu is None else st.wu[sl], wv=None if st.wv is None else st.wv[sl])
+    got = ebg.ebg_commit_block(*args, **kw)
+    want = ebg.ebg_commit_block_plain(*args, **kw)
+    for name, g, w in zip(("keep_bits", "e_count", "v_count", "parts"), got, want):
+        check(torch.equal(g, w), f"ebg_commit {name} differs from the plain version")
+    return got[:3]
+
+
+def commit_blocks(graph, scorer, window, dev, first, count, block=256, order=None):
+    """Blocks [first, first+count) of `scorer`'s stream over `graph`, each held
+    against the plain version, from the real state the kernel's stream entry
+    reaches after `first` blocks. Returns (stream, state at `first`)."""
+    from repro_torch.core import streaming
+    from repro_torch.kernels import ebg_commit as ebg
+
+    st = streaming.prepare_stream(graph, PARTS, scorer, block=block, order=order, device=dev)
+    state = st.new_state(PARTS, graph.num_vertices)
+    if first:
+        sl = slice(0, first * block)
+        ebg.ebg_commit_stream(*state, st.u[sl], st.v[sl], st.valid[sl], st.coef, block=block,
+                              balance=st.balance, window=window,
+                              wu=None if st.wu is None else st.wu[sl],
+                              wv=None if st.wv is None else st.wv[sl])
+    start = tuple(t.clone() for t in state)
+    for b in range(first, first + count):
+        state = compare_commit(state, st, slice(b * block, (b + 1) * block), window)
+    return st, start
+
+
+def compare_superstep(sub, prog, num_vertices, source=0):
+    """The first superstep's local stage of `prog` through the kernel and
+    the plain version. Returns (inputs, values, num_out, kernel result, max abs err)."""
+    from repro_torch.graph import engine
+    from repro_torch.kernels import bsp_superstep as bsp
+
+    (lsrc, ldst, w, deg), val, n = engine.kernel_inputs(sub, prog, num_vertices=num_vertices,
+                                                        source=source)
+    combine = "sum" if deg is not None else "min"
+    kw = dict(num_out=n, combine=combine, inner_cap=10_000, out_degree=deg)
+    got = bsp.bsp_superstep(lsrc, ldst, w, val, **kw)
+    want = bsp.bsp_superstep_plain(lsrc, ldst, w, val, **kw)
+    check(torch.equal(got[1], want[1]), f"bsp_superstep {prog}: iteration counts differ")
+    err = float((got[0].double() - want[0].double()).abs().max())
+    if combine == "min":
+        check(torch.equal(got[0], want[0]), f"bsp_superstep {prog}: min values differ")
+    else:
+        check(torch.allclose(got[0], want[0], rtol=SUM_RTOL, atol=SUM_ATOL),
+              f"bsp_superstep {prog}: sum values differ beyond rtol {SUM_RTOL}")
+    return (lsrc, ldst, w, deg), val, n, got, err
+
+
+def phase_kernels(dev):
+    from repro_torch.api.pipeline import GraphPipeline
+    from repro_torch.graph.build import build_subgraphs
+    from repro_torch.graph.generate import rmat
+
+    g = rmat(**SMOKE)
+    nblocks = -(-g.num_edges // 256)
+    for scorer, window in (("ebv", False), ("ebv", True), ("hdrf", False), ("greedy", False)):
+        commit_blocks(g, scorer, window, dev, first=100, count=6)
+    commit_blocks(g, "ebv", False, dev, first=nblocks - 2, count=2)  # the padded tail block
+    log("kernels: ebg_commit == plain on 26 smoke blocks (ebv frozen/window, hdrf, greedy)")
+
+    pipe = GraphPipeline(g, device=dev).partition("ebg_chunked", parts=PARTS)
+    sym = pipe.subgraphs_for(symmetrize=True)
+    dirn = pipe.subgraphs_for(symmetrize=False)
+    flat = build_subgraphs(g, pipe.result, symmetrize=True, addressing="flat", device=dev)
+    errs = {}
+    for prog, sub in (("cc", sym), ("reach", sym), ("reach", flat), ("sssp", dirn),
+                      ("bfs", dirn), ("pr", dirn)):
+        _, val, _, _, err = compare_superstep(sub, prog, g.num_vertices)
+        errs[f"{prog}/{sub.addressing}"] = err
+        if sub is flat:
+            check(bool((val < 0).any()), "flat REACH must hand the kernel negative values")
+    # Flat REACH end to end: the kernel sees raw negated global ids, and
+    # must give what two-level (rank-compressed) REACH gives.
+    two = pipe.run("reach")
+    from repro_torch.graph import algorithms as alg
+
+    vals, st = alg.run_program(flat, "reach", num_vertices=g.num_vertices)
+    check(st.total_messages == two.stats.total_messages and st.supersteps == two.stats.supersteps,
+          "flat REACH stats differ from two-level")
+    check(np.array_equal(alg.scatter_to_global(flat, vals, g.num_vertices), two.to_global()),
+          "flat REACH labels differ from two-level")
+    log(f"kernels: bsp_superstep == plain on the smoke streams; max |err| {errs}")
+    return errs
+
+
+def phase_pinned(dev):
+    from repro_torch.api.pipeline import GraphPipeline
+    from repro_torch.graph.generate import make_graph, rmat
+
+    times = {}
+    for name, pin in PINNED.items():
+        t = time.perf_counter()
+        g = rmat(**SMOKE) if name == "smoke" else make_graph(name)
+        check((g.num_vertices, g.num_edges) == (pin["V"], pin["E"]), f"{name}: graph size")
+        pipe = GraphPipeline(g, device=dev).partition("ebg_chunked", parts=PARTS)
+        m = pipe.metrics
+        got = tuple(f"{x:.6f}" for x in (m.replication_factor, m.edge_imbalance,
+                                         m.vertex_imbalance))
+        check(got == pin["metrics"], f"{name}: metrics {got} != {pin['metrics']}")
+        check(pipe.default_source() == 0, f"{name}: default source")
+        for prog in PROGRAMS:
+            r = pipe.run(prog)
+            got = (r.stats.supersteps, r.stats.total_messages)
+            check(got == pin["runs"][prog], f"{name} {prog}: {got} != {pin['runs'][prog]}")
+            if prog == "cc":
+                check(r.num_components() == pin["components"], f"{name}: CC components")
+        times[name] = time.perf_counter() - t
+        log(f"pinned: {name} matches the reference ({times[name]:.1f} s)")
+    return times
+
+
+# --------------------------------------------------- full width: oracles
+
+
+def oracle_labels(src, dst, V, reduce):
+    """Min (or max) label propagation over the undirected view, plain torch."""
+    lab = torch.arange(V, device=src.device)
+    while True:
+        a = torch.minimum(lab[src], lab[dst]) if reduce == "amin" else torch.maximum(lab[src],
+                                                                                      lab[dst])
+        new = lab.scatter_reduce(0, src, a, reduce).scatter_reduce(0, dst, a, reduce)
+        if torch.equal(new, lab):
+            return lab
+        lab = new
+
+
+def oracle_hops(src, dst, V, source):
+    dist = torch.full((V,), INF_I32, dtype=torch.int64, device=src.device)
+    dist[source] = 0
+    while True:
+        d = dist[src]
+        new = dist.scatter_reduce(0, dst, torch.where(d < INF_I32, d + 1, INF_I32), "amin")
+        if torch.equal(new, dist):
+            return dist
+        dist = new
+
+
+def oracle_pagerank(src, dst, V, iters=20, damping=0.85):
+    outdeg = torch.bincount(src, minlength=V).double()
+    rank = torch.full((V,), 1.0 / V, dtype=torch.float64, device=src.device)
+    for _ in range(iters):
+        share = torch.where(outdeg > 0, rank / outdeg.clamp(min=1), 0.0)
+        rank = (1 - damping) / V + damping * torch.zeros_like(rank).index_add_(0, dst, share[src])
+    return rank
+
+
+def phase_full(dev, log2_edges):
+    from repro_torch.api.pipeline import GraphPipeline
+    from repro_torch.graph.generate import rmat
+    from repro_torch.kernels import dispatch
+
+    st = Stages()
+    g = st("generate", rmat, num_edges=1 << log2_edges, **FULL)
+    V = g.num_vertices
+    log(f"full: {V} vertices, {g.num_edges} edges, p={PARTS}")
+
+    # ---- the main path, with the launch counts zeroed just before it.
+    dispatch.reset_launches()
+    pipe = GraphPipeline(g, device=dev).partition("ebg_chunked", parts=PARTS)
+    st("partition", lambda: pipe.result)
+    m = st("metrics", lambda: pipe.metrics)
+    runs = {}
+    st("build_symmetric", pipe.subgraphs_for, symmetrize=True)
+    for prog in ("cc", "reach"):
+        runs[prog] = st(f"run_{prog}", pipe.run, prog)
+    pipe.subgraphs_for(symmetrize=True)  # cached
+    st("build_directed", pipe.subgraphs_for, symmetrize=False)
+    for prog in ("sssp", "bfs", "pr"):
+        runs[prog] = st(f"run_{prog}", pipe.run, prog)
+    launches = dict(dispatch.LAUNCHES)
+    log(f"full: launches on the main path {launches}")
+    for k in ("ebg_commit", "bsp_superstep.min", "bsp_superstep.sum"):
+        check(launches.get(k, 0) > 0, f"the main path launched {k} no time")
+
+    # ---- what came out, against plain oracles on the card.
+    t = time.perf_counter()
+    src = g.src.to(dev).long()
+    dst = g.dst.to(dev).long()
+    cov = g.covered_vertices()
+    cc = runs["cc"].to_global()[cov]
+    check(np.array_equal(cc, oracle_labels(src, dst, V, "amin").cpu().numpy()[cov]),
+          "CC labels differ from label propagation")
+    reach = runs["reach"].to_global(reduce="max")[cov]
+    check(np.array_equal(reach, oracle_labels(src, dst, V, "amax").cpu().numpy()[cov]),
+          "REACH labels differ from max-label propagation")
+    source = pipe.default_source()
+    hops = oracle_hops(src, dst, V, source).cpu().numpy()[cov]
+    check(np.array_equal(runs["bfs"].to_global()[cov], hops), "BFS differs from the oracle")
+    unit = np.where(hops == INF_I32, np.float32(3.0e38), hops.astype(np.float32))
+    check(np.array_equal(runs["sssp"].to_global()[cov], unit),
+          "SSSP (unit weights) differs from the hop counts")
+    pr = runs["pr"].to_global(reduce="sum")[cov]
+    ref = oracle_pagerank(src, dst, V).cpu().numpy()[cov]
+    check(np.isfinite(pr).all() and np.allclose(pr, ref, rtol=PR_ORACLE_RTOL, atol=0.0),
+          "PageRank differs from a float64 power iteration")
+    del src, dst
+    components = runs["cc"].num_components()
+    st.s["oracles"] = time.perf_counter() - t
+    log(f"full: CC {components} components == label propagation; REACH, BFS, SSSP, PR "
+        f"agree with their oracles ({st.s['oracles']:.1f} s)")
+
+    summary = dict(
+        vertices=V, edges=g.num_edges, parts=PARTS, stage_s=st.s, launches=launches,
+        metrics=dict(replication_factor=m.replication_factor, edge_imbalance=m.edge_imbalance,
+                     vertex_imbalance=m.vertex_imbalance),
+        components=components, source=source,
+        runs={p: dict(supersteps=r.stats.supersteps, messages=r.stats.total_messages,
+                      max_mean=r.stats.max_mean,
+                      inner_iters=r.stats.inner_iters_per_step.sum(axis=1).tolist())
+              for p, r in runs.items()},
+    )
+    kernels = measure_kernels(g, pipe, runs, launches, dev)
+    return summary, kernels
+
+
+# -------------------------------------- full width: kernels at their shapes
+
+
+def measure_kernels(g, pipe, runs, launches, dev):
+    """Each kernel against its plain version at the main path's shapes,
+    timed beside its bound, the plain version and the library call."""
+    from repro_torch.kernels import bsp_superstep as bsp, ebg_commit as ebg
+
+    B = 256
+    order = pipe.result.order.numpy()
+    nblocks = -(-g.num_edges // B)
+    # ebg_commit: blocks from the middle of the full-width stream.
+    mid = nblocks // 2
+    stream, state = commit_blocks(g, "ebv", False, dev, first=mid, count=4, order=order)
+    sl = slice(mid * B, (mid + 1) * B)
+    args = (*state, stream.u[sl], stream.v[sl], stream.valid[sl], stream.coef)
+    ms = cuda_ms(lambda: ebg.ebg_commit_block(*args), reps=50)
+    plain_ms = cuda_ms(lambda: ebg.ebg_commit_block_plain(*args), reps=2)
+    keep = state[0]
+    block_bytes = 2 * nbytes(keep, state[1], state[2]) + nbytes(*args[3:]) + B * 4
+    # The whole stream, as the main path runs it: one launch per 8192 blocks.
+    fresh = stream.new_state(PARTS, g.num_vertices)
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    parts = ebg.ebg_commit_stream(*fresh, stream.u, stream.v, stream.valid, stream.coef,
+                                  block=B)
+    t1.record()
+    t1.synchronize()
+    stream_ms = t0.elapsed_time(t1)
+    check(torch.equal(parts[:g.num_edges].cpu(), pipe.result.part.cpu()),
+          "a second full partition differs from the first")
+    entries = [dict(
+        name="ebg_commit", route="cuda", source="src/repro_torch/kernels/csrc/ebg_commit.cu",
+        replaces="src/repro/kernels/ebg_commit.py:124", launches=launches["ebg_commit"],
+        max_abs_err=0.0,  # compare_commit demands bitwise equality
+        ms=ms, plain_ms=plain_ms,
+        bound_ms=1e3 * block_bytes / HBM_BYTES_PER_S, bound_by="bytes", library_ms=None,
+        shape=f"one block: p={PARTS}, B={B}, bitset {tuple(keep.shape)}",
+        stream_ms=stream_ms, stream_ms_per_block=stream_ms / nblocks,
+    )]
+    del stream, state, args, fresh, parts
+
+    # bsp_superstep: the first superstep of CC (min) and PR (sum).
+    for prog, sym in (("cc", True), ("pr", False)):
+        sub = pipe.subgraphs_for(symmetrize=sym)
+        (lsrc, ldst, w, deg), val, n, got, err = compare_superstep(sub, prog, g.num_vertices)
+        combine = "sum" if deg is not None else "min"
+        kw = dict(num_out=n, combine=combine, inner_cap=10_000, out_degree=deg)
+        ms = cuda_ms(lambda: bsp.bsp_superstep(lsrc, ldst, w, val, **kw), reps=3)
+        plain_ms = cuda_ms(lambda: bsp.bsp_superstep_plain(lsrc, ldst, w, val, **kw), reps=1)
+        p, E = lsrc.shape
+        io_bytes = nbytes(lsrc, ldst, w, val, deg) + nbytes(got[0], got[1])
+        idx = ldst.long()
+        if combine == "min":
+            # Passes the data needs: each worker runs its changing passes and
+            # one more that finds nothing to change.
+            passes = int((got[1] + 1).clamp(max=10_000).sum())
+            ops = 2.0 * passes * E
+            data = torch.where(w < 3.0e38, torch.gather(val, 1, lsrc.long()) + w, 3.0e38)
+            scratch = val.clone()
+            library_ms = cuda_ms(lambda: scratch.scatter_reduce_(1, idx, data, "amin"), reps=5)
+            library = "Tensor.scatter_reduce_(amin), one pass"
+        else:
+            passes = p
+            ops = 3.0 * p * E
+            share = torch.where(deg > 0, val / deg, 0.0)
+            data = (torch.gather(share, 1, lsrc.long()) * w).reshape(-1)
+            flat = (idx + torch.arange(p, device=dev)[:, None] * n).reshape(-1)
+            scratch = torch.zeros(p * n, device=dev)
+            library_ms = cuda_ms(lambda: scratch.index_add_(0, flat, data), reps=5)
+            library = "Tensor.index_add_"
+        bound = max(io_bytes / HBM_BYTES_PER_S, ops / F32_FLOPS)
+        entries.append(dict(
+            name=f"bsp_superstep.{combine}", route="cuda",
+            source="src/repro_torch/kernels/csrc/bsp_superstep.cu",
+            replaces="src/repro/kernels/bsp_superstep.py:182",
+            launches=launches[f"bsp_superstep.{combine}"], max_abs_err=err, ms=ms,
+            plain_ms=plain_ms, bound_ms=1e3 * bound,
+            bound_by="bytes" if io_bytes / HBM_BYTES_PER_S >= ops / F32_FLOPS else "operations",
+            library_ms=library_ms, library=library,
+            shape=f"{prog} first superstep: stream [{p}, {E}], values [{p}, {n}]",
+            # The stream's bytes once per pass each worker ran: the bound of a
+            # kernel that reads its edges from device memory on every pass.
+            worker_passes=passes, stream_pass_bound_ms=1e3 * passes * 12.0 * E / HBM_BYTES_PER_S,
+        ))
+        del lsrc, ldst, w, deg, val, got, data, scratch, idx
+        torch.cuda.empty_cache()
+    for e in entries:
+        log(f"kernel {e['name']}: {e['ms']:.4f} ms (plain {e['plain_ms']:.3f} ms, bound "
+            f"{e['bound_ms']:.4f} ms by {e['bound_by']}, library {e['library_ms']})")
+    return entries
+
+
+# -------------------------------------------------------------------- main
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--full-log2-edges", type=int, default=26,
+                    help="log2 of the full-width edge count (V stays 2^22)")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; the port's kernels run only on the card",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    import repro_torch  # noqa: F401  (fails outside the repository)
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    t0 = time.perf_counter()
+    smi = subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip()
+    log(f"card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+
+    build_s = phase_build()
+    smoke_errs = phase_kernels(dev)
+    pinned_s = phase_pinned(dev)
+    summary, kernels = phase_full(dev, args.full_log2_edges)
+    total = time.perf_counter() - t0
+    OUT_DIR.mkdir(exist_ok=True)
+    (OUT_DIR / "chip_smoke.json").write_text(json.dumps(dict(
+        card=smi, build_s=build_s, smoke_kernel_errors=smoke_errs, pinned_s=pinned_s,
+        full=summary, kernels=kernels, total_s=total,
+    ), indent=1))
+    log(f"all phases passed in {total:.1f} s")
+
+    print(smi)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                              "kind": torch.cuda.get_device_name(0),
+                                              "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,103 @@
+"""Public entry points of the port's kernels (port of `repro.kernels.ops`).
+
+Each entry dispatches on the device of its tensors through the kernel
+wrappers (CPU: the plain PyTorch version; CUDA: the hand-written kernel)
+and owns the conventions around the kernel: the superstep's padding to a
+multiple of `block_e` at the dump slot, `max` as negated `min`, and the
+commit's coefficient vector.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import bsp_superstep as _bsp
+from repro_torch.kernels import ebg_commit as _ebg
+
+INF = _bsp.INF
+
+
+def pad_stream(lsrc, ldst, weight, *, num_out: int, block_e: int, identity: float):
+    """Pad every worker's [p, E] stream to a multiple of block_e with no-op
+    edges at the dump slot num_out-1 (which keeps dst-sortedness) carrying
+    the reduction identity as weight."""
+    p, E = lsrc.shape
+    block_e = max(min(block_e, E), 1)
+    pad = (-E) % block_e
+    if not pad:
+        return lsrc, ldst, weight
+    dev = lsrc.device
+    lsrc = torch.cat([lsrc, torch.zeros((p, pad), dtype=lsrc.dtype, device=dev)], dim=1)
+    ldst = torch.cat([ldst, torch.full((p, pad), num_out - 1, dtype=ldst.dtype, device=dev)], dim=1)
+    weight = torch.cat([weight, torch.full((p, pad), identity, dtype=weight.dtype, device=dev)],
+                       dim=1)
+    return lsrc, ldst, weight
+
+
+def bsp_superstep(lsrc, ldst, weight, val, *, num_out: int, combine: str = "min",
+                  inner_cap: int = 1, out_degree=None, block_e: int = 512):
+    """Whole-local-stage BSP superstep for a batch of workers.
+
+    combine="min" iterates the min-plus relaxation to local convergence
+    (capped at `inner_cap`; pads carry weight INF); combine="max" runs on
+    the same kernel via negation (`weight` is then the pad carrier only:
+    real edges hold 0, pads INF); combine="sum" is one out-degree-normalized
+    push-sum sweep (pads carry weight 0; `out_degree` [p, num_out] f32).
+    Returns (new_val [p, num_out] f32, per-worker inner iterations [p] int32).
+    """
+    if combine not in ("min", "max", "sum"):
+        raise ValueError(f"combine must be 'min', 'max' or 'sum', got {combine!r}")
+    if combine == "max":
+        out, iters = bsp_superstep(lsrc, ldst, weight, -val, num_out=num_out, combine="min",
+                                   inner_cap=inner_cap, block_e=block_e)
+        return -out, iters
+    if (combine == "sum") != (out_degree is not None):
+        raise ValueError("out_degree is required for combine='sum' and only then")
+    identity = 0.0 if combine == "sum" else INF
+    lsrc, ldst, weight = pad_stream(lsrc, ldst, weight, num_out=num_out, block_e=block_e,
+                                    identity=identity)
+    return _bsp.bsp_superstep(lsrc, ldst, weight, val, num_out=num_out, combine=combine,
+                              inner_cap=inner_cap, out_degree=out_degree)
+
+
+def commit_coefficients(*, alpha, beta, inv_e, inv_v, eps, device) -> torch.Tensor:
+    """The commit kernel's [5] f32 coefficient vector (ce, cv, inv_e, inv_v,
+    eps). inv_e/inv_v should be computed in f32 by the caller
+    (float32(p) / float32(E)), as the reference does."""
+    coef = np.array([alpha, beta, inv_e, inv_v, eps], dtype=np.float32)
+    return torch.from_numpy(coef).to(device)
+
+
+def ebg_commit_block(
+    keep_bits, e_count, v_count, u, v, valid, *,
+    alpha, beta, inv_e, inv_v, eps=1.0, balance: str = "static",
+    wu=None, wv=None, window: bool = False,
+):
+    """Fused streaming-scorer block commit: membership score + argmin + exact
+    balance commit + bitset update for one block of edges. alpha/beta are
+    the generic edge/vertex balance coefficients (HDRF's lambda is alpha
+    with beta=0), `balance` selects the edge-balance normalizer, wu/wv
+    optionally weight the membership term per edge. Returns new
+    (keep_bits, e_count, v_count, parts); pad edges get part p."""
+    if (wu is None) != (wv is None):
+        raise ValueError("wu and wv must be given together")
+    coef = commit_coefficients(alpha=alpha, beta=beta, inv_e=inv_e, inv_v=inv_v, eps=eps,
+                               device=keep_bits.device)
+    # Unweighted scorers pass no weight streams: the kernel is specialised
+    # on `weighted` and reads none (the TPU kernel took zero streams).
+    return _ebg.ebg_commit_block(
+        keep_bits, e_count, v_count, u, v, valid, coef, balance=balance,
+        wu=wu, wv=wv, window=window,
+    )
+
+
+def pack_keep_bits(keep_bool: torch.Tensor) -> torch.Tensor:
+    """[p, V] bool -> [p, ceil(V/32)] packed bitset in int32 words."""
+    p, V = keep_bool.shape
+    pad = (-V) % 32
+    kb = torch.nn.functional.pad(keep_bool.to(torch.int64), (0, pad))
+    words = kb.reshape(p, -1, 32)
+    shifts = torch.arange(32, dtype=torch.int64, device=keep_bool.device)
+    packed = (words << shifts).sum(dim=-1)
+    packed = torch.where(packed >= 1 << 31, packed - (1 << 32), packed)
+    return packed.to(torch.int32)

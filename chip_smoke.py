@@ -12,7 +12,15 @@ Phases; a failed check raises and the script exits non-zero:
               blocks for ebv (frozen and window), hdrf and greedy — bitwise;
               bsp_superstep on the CC, REACH (two-level and flat addressing,
               the latter with negative values), SSSP and BFS streams (min,
-              bitwise) and the PageRank stream (sum, to rtol 1e-5).
+              bitwise) and the PageRank stream (sum, to rtol 1e-5);
+              segment_reduce min and max (bitwise) and sum (rtol 1e-5) on
+              two workers' CC and PageRank streams and on a hub-heavy
+              stream; ebg_membership on the smoke partition's bitset
+              (bitwise); decode_attention at the parity tests' shapes, f32
+              and bf16, with and without softcap (f32: 2e-5; bf16: one
+              bf16 rounding, rtol 2^-7 and atol 1e-5, which the kernel's
+              output scaled by 1.01 must fail). The segment reductions,
+              membership and attention run through `kernels.ops`.
   3. pinned   the smoke graph and twitter_like through GraphPipeline on the
               card (p=32, ebg_chunked): every number the JAX reference gives
               on the CPU, exactly (RF and imbalances to 6 decimals).
@@ -23,7 +31,13 @@ Phases; a failed check raises and the script exits non-zero:
               checked against plain label-propagation / BFS / power-iteration
               oracles on the card. Then each kernel is held against its plain
               version at these shapes and timed beside its bound, its plain
-              version and the nearest single PyTorch call.
+              version and the nearest single PyTorch call: segment_reduce
+              on one worker's CC and PageRank streams, ebg_membership on
+              the full partition's bitset over 2^22 stream edges, and
+              decode_attention at gemma2_27b's attention widths (Hq 32,
+              Hkv 16, head_dim 128, softcap 50; B=8, S=32768, bf16). These
+              three are off the main path (the JAX package's too): their
+              launch counts there are 0.
 
 Prints the card's name and power limit, the {"kernels": [...]} line, and last
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
@@ -46,11 +60,24 @@ OUT_DIR = ROOT / "chiprun_out"
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores (NVIDIA data sheet)
+BF16_FLOPS = 989e12  # H100 SXM dense bf16 in the tensor cores (NVIDIA data sheet)
 PARTS = 32
 SMOKE = dict(num_vertices=1 << 14, num_edges=200_000, a=0.65, b=0.15, c=0.15, seed=7)
 FULL = dict(num_vertices=1 << 22, a=0.57, b=0.19, c=0.19, seed=0)
 SUM_RTOL, SUM_ATOL = 1e-5, 1e-8  # f32 sums in another order (atomics in the plain version)
 PR_ORACLE_RTOL = 1e-3  # f32 engine against a float64 power iteration
+# Attention limits (rtol, atol). bf16: one bf16 rounding of the output (a
+# one-ulp disagreement is at most 2^-7 of the value) plus an f32-level atol
+# for values near zero. Every comparison also holds a control, the kernel's
+# output off by ATTN_CONTROL, which must fail the limit.
+ATTN_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (2**-7, 1e-5)}
+ATTN_CONTROL = 1.01
+SEGMENT_ENTRIES = {"min": "segment_min_plus", "max": "segment_max", "sum": "segment_sum_scaled"}
+# The parity tests' decode shapes (B, Hq, Hkv, D, S), and gemma2_27b's
+# attention widths (src/repro/configs/gemma2_27b.py) at B=8, S=32768.
+ATTN_SHAPES = ((2, 8, 4, 64, 512), (1, 4, 4, 32, 1024), (3, 12, 2, 64, 512))
+GEMMA2_27B = dict(B=8, Hq=32, Hkv=16, D=128, S=32_768, softcap=50.0)
+MEMB_EDGES = 1 << 22  # the membership slice of the full-width stream
 
 # The JAX reference on the CPU (compute_backend="xla", all defaults,
 # p=32, ebg_chunked): (steps, messages) per program, CC with components.
@@ -192,6 +219,131 @@ def compare_superstep(sub, prog, num_vertices, source=0):
     return (lsrc, ldst, w, deg), val, n, got, err
 
 
+def compare_segment(op, lsrc, ldst, w, val, n):
+    """One `ops` segment entry on the card (the kernel) and on host copies
+    of the same inputs (the plain version); min and max bitwise, sum to
+    rtol. Returns (kernel result, max abs err)."""
+    from repro_torch.kernels import ops
+
+    entry = getattr(ops, SEGMENT_ENTRIES[op])
+    got = entry(lsrc, ldst, w, val, num_out=n)
+    want = entry(lsrc.cpu(), ldst.cpu(), w.cpu(), val.cpu(), num_out=n).to(got.device)
+    err = float((got.double() - want.double()).abs().max())
+    if op == "sum":
+        check(torch.allclose(got, want, rtol=SUM_RTOL, atol=SUM_ATOL),
+              f"segment_reduce sum differs beyond rtol {SUM_RTOL}")
+    else:
+        check(torch.equal(got, want), f"segment_reduce {op} differs from the plain version")
+    return got, err
+
+
+def pr_share(val, deg):
+    """PageRank's per-edge source share, as the sum kernel's gather takes it."""
+    return torch.where(deg > 0, val / deg, 0.0)
+
+
+def keep_bits_of(u, v, part, num_parts, num_vertices):
+    """The packed membership bitset a partition leaves: vertex x is in
+    keep[i] when an edge of part i touches it."""
+    from repro_torch.kernels import ops
+
+    keep = torch.zeros((num_parts, num_vertices), dtype=torch.bool, device=u.device)
+    keep[part.long(), u.long()] = True
+    keep[part.long(), v.long()] = True
+    return ops.pack_keep_bits(keep)
+
+
+def compare_membership(keep, u, v):
+    from repro_torch.kernels import ebg_score, ops
+
+    got = ops.ebg_membership(keep, u, v)
+    check(torch.equal(got, ebg_score.ebg_membership_plain(keep, u, v)),
+          "ebg_membership differs from the plain version")
+    return got
+
+
+def attention_inputs(B, Hq, Hkv, D, S, dtype, dev, seed):
+    """q, k, v made on the card from a seeded generator."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(shape, generator=gen, device=dev, dtype=dtype)
+            for shape in ((B, Hq, D), (B, S, Hkv, D), (B, S, Hkv, D))]
+
+
+def over_limit(got, want, rtol, atol) -> float:
+    """max |got - want| / (atol + rtol |want|): at most 1 within the limit."""
+    return float(((got - want).abs() / (atol + rtol * want.abs())).max())
+
+
+def compare_attention(q, k, v, softcap):
+    """Kernel against plain version at ATTN_TOL, and the control against the
+    same limit, which it must fail. Returns (kernel result, readings)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import decode_attn
+
+    got = ops.decode_attention(q, k, v, softcap=softcap)
+    want = decode_attn.decode_attention_plain(q, k, v, softcap=softcap).float()
+    rtol, atol = ATTN_TOL[q.dtype]
+    check(got.dtype == q.dtype and got.shape == q.shape, "decode_attention output type/shape")
+    check(bool(torch.isfinite(got.float()).all()), "decode_attention gave non-finite values")
+    reading = dict(max_abs_err=float((got.float() - want).abs().max()),
+                   over_limit=over_limit(got.float(), want, rtol, atol),
+                   control_over_limit=over_limit(ATTN_CONTROL * got.float(), want, rtol, atol))
+    what = f"decode_attention {q.dtype} softcap={softcap}"
+    check(reading["over_limit"] <= 1.0,
+          f"{what} differs beyond rtol {rtol}, atol {atol}: {reading}")
+    check(reading["control_over_limit"] > 1.0,
+          f"{what}: the limit passes the control (output x {ATTN_CONTROL}): {reading}")
+    return got, reading
+
+
+def phase_new_kernels(g, pipe, sym, dirn, dev):
+    """segment_reduce, ebg_membership and decode_attention against their
+    plain versions on the smoke graph's state and the parity tests' shapes."""
+    from repro_torch.graph import engine
+
+    errs = {}
+    for prog, sub, ops_ in (("cc", sym, ("min", "max")), ("pr", dirn, ("sum",))):
+        (lsrc, ldst, w, deg), val, n = engine.kernel_inputs(sub, prog,
+                                                            num_vertices=g.num_vertices)
+        if deg is not None:
+            val = pr_share(val, deg)
+        for worker in (0, 1):
+            for op in ops_:
+                _, errs[f"segment_{op}/{prog}/w{worker}"] = compare_segment(
+                    op, lsrc[worker], ldst[worker], w[worker], val[worker], n)
+    # Hub-heavy: one destination owns 90 % of the edges (dst 7 of V + 1).
+    gen = torch.Generator(device=dev).manual_seed(7)
+    V, E = 1 << 14, 1 << 20
+    other = torch.randint(0, V, (E,), generator=gen, device=dev)
+    hub = torch.rand((E,), generator=gen, device=dev) < 0.9
+    ldst = torch.where(hub, 7, other).sort().values.to(torch.int32)
+    lsrc = torch.randint(0, V, (E,), generator=gen, device=dev, dtype=torch.int32)
+    w = torch.rand((E,), generator=gen, device=dev)
+    val = torch.rand((V + 1,), generator=gen, device=dev) * 5
+    for op in ("min", "sum"):
+        _, errs[f"segment_{op}/hub"] = compare_segment(op, lsrc, ldst, w, val, V + 1)
+    log(f"kernels: segment_reduce == plain on the smoke CC/PR streams and a hub stream; "
+        f"max |err| {errs}")
+
+    order = pipe.result.order
+    u = g.src[order].to(dev)
+    v = g.dst[order].to(dev)
+    keep = keep_bits_of(u, v, pipe.result.part.to(dev), PARTS, g.num_vertices)
+    memb = compare_membership(keep, u, v)
+    check(bool((memb.gather(0, pipe.result.part.to(dev).long()[None]) == 0).all()),
+          "an edge's endpoints are missing from its own part's bitset")
+    log(f"kernels: ebg_membership == plain on the smoke partition's bitset {tuple(keep.shape)}")
+
+    for i, (B, Hq, Hkv, D, S) in enumerate(ATTN_SHAPES):
+        for dtype in (torch.float32, torch.bfloat16):
+            for softcap in (0.0, 30.0):
+                q, k, v = attention_inputs(B, Hq, Hkv, D, S, dtype, dev, seed=i)
+                _, errs[f"attn/{B}x{Hq}x{Hkv}x{D}x{S}/{dtype}/cap{softcap}"] = \
+                    compare_attention(q, k, v, softcap)
+    log("kernels: decode_attention == plain at the parity shapes (f32, bf16, softcap 0/30)")
+    return errs
+
+
 def phase_kernels(dev):
     from repro_torch.api.pipeline import GraphPipeline
     from repro_torch.graph.build import build_subgraphs
@@ -226,6 +378,7 @@ def phase_kernels(dev):
     check(np.array_equal(alg.scatter_to_global(flat, vals, g.num_vertices), two.to_global()),
           "flat REACH labels differ from two-level")
     log(f"kernels: bsp_superstep == plain on the smoke streams; max |err| {errs}")
+    errs.update(phase_new_kernels(g, pipe, sym, dirn, dev))
     return errs
 
 
@@ -391,6 +544,13 @@ def measure_kernels(g, pipe, runs, launches, dev):
     stream_ms = t0.elapsed_time(t1)
     check(torch.equal(parts[:g.num_edges].cpu(), pipe.result.part.cpu()),
           "a second full partition differs from the first")
+    keep = fresh[0]  # the bitset the full stream leaves
+    E = g.num_edges
+    check(torch.equal(keep, keep_bits_of(stream.u[:E], stream.v[:E], parts[:E], PARTS,
+                                         g.num_vertices)),
+          "the stream's bitset is not its partition's")
+    memb_entry = measure_membership(keep, stream.u[:MEMB_EDGES], stream.v[:MEMB_EDGES],
+                                    launches)
     entries = [dict(
         name="ebg_commit", route="cuda", source="src/repro_torch/kernels/csrc/ebg_commit.cu",
         replaces="src/repro/kernels/ebg_commit.py:124", launches=launches["ebg_commit"],
@@ -400,7 +560,8 @@ def measure_kernels(g, pipe, runs, launches, dev):
         shape=f"one block: p={PARTS}, B={B}, bitset {tuple(keep.shape)}",
         stream_ms=stream_ms, stream_ms_per_block=stream_ms / nblocks,
     )]
-    del stream, state, args, fresh, parts
+    del stream, state, args, fresh, parts, keep
+    segment_entries = []
 
     # bsp_superstep: the first superstep of CC (min) and PR (sum).
     for prog, sym in (("cc", True), ("pr", False)):
@@ -445,12 +606,115 @@ def measure_kernels(g, pipe, runs, launches, dev):
             # kernel that reads its edges from device memory on every pass.
             worker_passes=passes, stream_pass_bound_ms=1e3 * passes * 12.0 * E / HBM_BYTES_PER_S,
         ))
-        del lsrc, ldst, w, deg, val, got, data, scratch, idx
+        del data, scratch, idx
+        segment_entries.append(measure_segment(prog, lsrc[0], ldst[0], w[0],
+                                               val[0] if deg is None else pr_share(val, deg)[0],
+                                               n, launches))
+        del lsrc, ldst, w, deg, val, got
         torch.cuda.empty_cache()
+    entries += segment_entries
+    entries.append(memb_entry)
+    entries.append(measure_attention(dev, launches))
     for e in entries:
         log(f"kernel {e['name']}: {e['ms']:.4f} ms (plain {e['plain_ms']:.3f} ms, bound "
             f"{e['bound_ms']:.4f} ms by {e['bound_by']}, library {e['library_ms']})")
     return entries
+
+
+def measure_segment(prog, lsrc, ldst, w, val, n, launches):
+    """segment_reduce on one worker's stream of the main path's run of `prog`."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import segment_reduce as seg
+
+    op = "sum" if prog == "pr" else "min"
+    entry = getattr(ops, SEGMENT_ENTRIES[op])
+    got, err = compare_segment(op, lsrc, ldst, w, val, n)
+    ms = cuda_ms(lambda: entry(lsrc, ldst, w, val, num_out=n), reps=20)
+    plain_ms = cuda_ms(lambda: seg.segment_reduce_plain(lsrc, ldst, w, val, n, op=op), reps=3)
+    E = lsrc.shape[0]
+    idx = ldst.long()
+    gathered = val[lsrc.long()]
+    if op == "min":
+        data = torch.where(w < ops.INF, gathered + w, ops.INF)
+        scratch = val[:n].clone()
+        library_ms = cuda_ms(lambda: scratch.scatter_reduce_(0, idx, data, "amin"), reps=20)
+        library = "Tensor.scatter_reduce_(amin)"
+    else:
+        data = torch.where(w != 0.0, gathered * w, 0.0)
+        scratch = torch.zeros(n, device=val.device)
+        library_ms = cuda_ms(lambda: scratch.index_add_(0, idx, data), reps=20)
+        library = "Tensor.index_add_"
+    io_bytes = nbytes(lsrc, ldst, w, val, got)
+    n_ops = 2.0 * E  # an add (or multiply) and a min (or add) an edge
+    bound = max(io_bytes / HBM_BYTES_PER_S, n_ops / F32_FLOPS)
+    return dict(
+        name=f"segment_reduce.{op}", route="cuda",
+        source="src/repro_torch/kernels/csrc/segment_reduce.cu",
+        replaces="src/repro/kernels/segment_reduce.py:94",
+        launches=launches.get(f"segment_reduce.{op}", 0), max_abs_err=err, ms=ms,
+        plain_ms=plain_ms, bound_ms=1e3 * bound,
+        bound_by="bytes" if io_bytes / HBM_BYTES_PER_S >= n_ops / F32_FLOPS else "operations",
+        library_ms=library_ms, library=library,
+        shape=f"worker 0 of the {prog} stream: {E} edges, {val.shape[0]} values, num_out {n}",
+    )
+
+
+def measure_membership(keep, u, v, launches):
+    """ebg_membership over the full partition's bitset and a stream slice."""
+    from repro_torch.kernels import ebg_score, ops
+
+    got = compare_membership(keep, u, v)
+    ms = cuda_ms(lambda: ops.ebg_membership(keep, u, v), reps=10)
+    plain_ms = cuda_ms(lambda: ebg_score.ebg_membership_plain(keep, u, v), reps=2)
+    io_bytes = nbytes(keep, u, v, got)
+    n_ops = 3.0 * got.numel()  # two bit tests and an add an output
+    bound = max(io_bytes / HBM_BYTES_PER_S, n_ops / F32_FLOPS)
+    return dict(
+        name="ebg_membership", route="cuda",
+        source="src/repro_torch/kernels/csrc/ebg_membership.cu",
+        replaces="src/repro/kernels/ebg_score.py:35",
+        launches=launches.get("ebg_membership", 0), max_abs_err=0.0,  # bitwise, checked
+        ms=ms, plain_ms=plain_ms, bound_ms=1e3 * bound,
+        bound_by="bytes" if io_bytes / HBM_BYTES_PER_S >= n_ops / F32_FLOPS else "operations",
+        library_ms=None, library=None,
+        shape=f"bitset {tuple(keep.shape)}, {u.shape[0]} edges -> {tuple(got.shape)} f32",
+    )
+
+
+def measure_attention(dev, launches):
+    """decode_attention at gemma2_27b's attention widths, bf16."""
+    from repro_torch.kernels import decode_attn, ops
+
+    c = GEMMA2_27B
+    B, Hq, Hkv, D, S = c["B"], c["Hq"], c["Hkv"], c["D"], c["S"]
+    q, k, v = attention_inputs(B, Hq, Hkv, D, S, torch.bfloat16, dev, seed=27)
+    got, reading = compare_attention(q, k, v, c["softcap"])
+    ms = cuda_ms(lambda: ops.decode_attention(q, k, v, softcap=c["softcap"]), reps=10)
+    plain_ms = cuda_ms(lambda: decode_attn.decode_attention_plain(q, k, v,
+                                                                  softcap=c["softcap"]), reps=2)
+    # SDPA has no softcap: timed without it, on the same tensors.
+    q4, k4, v4 = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    library_ms = cuda_ms(lambda: sdpa(q4, k4, v4, enable_gqa=True), reps=10)
+    io_bytes = nbytes(q, k, v, got)
+    n_ops = 4.0 * B * Hq * S * D  # q.k and p.v, a multiply and an add each
+    bound = max(io_bytes / HBM_BYTES_PER_S, n_ops / BF16_FLOPS)
+    del q, k, v, q4, k4, v4, got
+    torch.cuda.empty_cache()
+    return dict(
+        name="decode_attention", route="cuda",
+        source="src/repro_torch/kernels/csrc/decode_attn.cu",
+        replaces="src/repro/kernels/decode_attn.py:61",
+        launches=launches.get("decode_attention", 0), max_abs_err=reading["max_abs_err"], ms=ms,
+        plain_ms=plain_ms, bound_ms=1e3 * bound,
+        bound_by="bytes" if io_bytes / HBM_BYTES_PER_S >= n_ops / BF16_FLOPS else "operations",
+        library_ms=library_ms,
+        library="F.scaled_dot_product_attention(enable_gqa=True), without the softcap",
+        limit=f"rtol {ATTN_TOL[torch.bfloat16][0]}, atol {ATTN_TOL[torch.bfloat16][1]}",
+        over_limit=reading["over_limit"], control_over_limit=reading["control_over_limit"],
+        shape=f"gemma2_27b attention: B={B}, Hq={Hq}, Hkv={Hkv}, D={D}, S={S}, bf16, "
+              f"softcap {c['softcap']}",
+    )
 
 
 # -------------------------------------------------------------------- main

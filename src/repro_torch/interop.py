@@ -90,3 +90,20 @@ def to_port(sub, *, device: Optional[str] = None) -> SubgraphSet:
     """Carry a reference `SubgraphSet` across in one call."""
     arrays, statics = subgraph_fields(sub)
     return subgraphs_from_numpy(arrays, **statics, device=device)
+
+
+def keep_bits_from_numpy(bits, *, device=None) -> torch.Tensor:
+    """A packed membership bitset as the reference holds it ([p, Vw] uint32)
+    → the port's int32 words, bit for bit."""
+    words = np.ascontiguousarray(bits, dtype=np.uint32)
+    if words.ndim != 2:
+        raise ValueError(f"keep bits must be [p, Vw], got shape {words.shape}")
+    return _tensor(words.view(np.int32), np.int32, resolve_device(device))
+
+
+def keep_bits_to_numpy(bits: torch.Tensor) -> np.ndarray:
+    """The inverse of `keep_bits_from_numpy`: int32 words → [p, Vw] uint32."""
+    if bits.dtype != torch.int32 or bits.ndim != 2:
+        raise ValueError(f"keep bits must be a [p, Vw] int32 tensor, got {bits.dtype} "
+                         f"{tuple(bits.shape)}")
+    return bits.detach().cpu().numpy().view(np.uint32).copy()

@@ -34,6 +34,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "atomic_min.cuh"
+
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
@@ -63,18 +65,6 @@ __device__ void worker_barrier(WorkerSync* ws, unsigned nctas) {
     __threadfence();
   }
   __syncthreads();
-}
-
-// acc[d] = min(acc[d], x); returns true if it lowered the value.
-__device__ __forceinline__ bool atomic_min_f32(float* addr, float x) {
-  unsigned* a = reinterpret_cast<unsigned*>(addr);
-  unsigned old = __float_as_uint(__ldcg(addr));
-  while (x < __uint_as_float(old)) {
-    const unsigned assumed = old;
-    old = atomicCAS(a, assumed, __float_as_uint(x));
-    if (old == assumed) return true;
-  }
-  return false;
 }
 
 __global__ void __launch_bounds__(kThreads)

@@ -1,0 +1,83 @@
+"""Single-token grouped-query attention over a KV cache (flash decode): the
+CUDA kernel `csrc/decode_attn.cu` and its plain PyTorch version.
+
+Port of the TPU kernel `repro.kernels.decode_attn.decode_attention_pallas`
+(oracle `repro.kernels.ref.decode_attention_ref`). Inputs are q [B, Hq, D]
+and k, v [B, S, Hkv, D], all f32 or all bf16, with Hq a multiple of Hkv;
+query head h·G + g (G = Hq/Hkv) attends over kv head h. The scores are
+q·k/√D, capped as softcap·tanh(s/softcap) when softcap is non-zero; the
+softmax and the weighted sum of v are taken in f32, and the result
+[B, Hq, D] is cast to q's dtype.
+
+Dispatch: a CPU tensor runs the plain version; a CUDA tensor launches the
+kernel (head_dim 32, 64, 128 or 256), and anything else raises. Launches
+are counted in `LAUNCHES` as "decode_attention".
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from repro_torch.kernels.dispatch import (
+    LAUNCHES,
+    check_launch,
+    check_tensor,
+    cuda_stream_handle,
+    load_library,
+)
+
+DTYPES = (torch.float32, torch.bfloat16)
+HEAD_DIMS = (32, 64, 128, 256)  # the CUDA kernel's: D/32 columns a lane
+
+
+def decode_attention_plain(q, k, v, *, softcap: float = 0.0):
+    """Plain PyTorch version (any device), term for term the reference
+    oracle: f32 einsum, optional tanh cap, softmax, f32 einsum, cast."""
+    B, Hq, D = q.shape
+    Hkv = k.shape[2]
+    qf = q.float().reshape(B, Hkv, Hq // Hkv, D)
+    scores = torch.einsum("bhgd,bshd->bhgs", qf, k.float()) / math.sqrt(D)
+    if softcap:
+        scores = softcap * torch.tanh(scores / softcap)
+    w = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhgs,bshd->bhgd", w, v.float())
+    return out.reshape(B, Hq, D).to(q.dtype)
+
+
+def decode_attention(q, k, v, *, softcap: float = 0.0):
+    """[B, Hq, D] attention output; see the module docstring."""
+    if q.ndim != 3 or k.ndim != 4:
+        raise ValueError(f"q must be [B, Hq, D] and k [B, S, Hkv, D], got {tuple(q.shape)} "
+                         f"and {tuple(k.shape)}")
+    (B, Hq, D), (S, Hkv) = q.shape, k.shape[1:3]
+    if q.dtype not in DTYPES:
+        raise TypeError(f"decode_attention takes f32 or bf16, got {q.dtype}")
+    if S < 1 or Hkv < 1 or Hq % Hkv:
+        raise ValueError(f"need S >= 1 and Hq % Hkv == 0, got S={S}, Hq={Hq}, Hkv={Hkv}")
+    dev = q.device
+    check_tensor("q", q, q.dtype, (B, Hq, D), dev)
+    check_tensor("k", k, q.dtype, (B, S, Hkv, D), dev)
+    check_tensor("v", v, q.dtype, (B, S, Hkv, D), dev)
+    if dev.type == "cpu":
+        return decode_attention_plain(q, k, v, softcap=softcap)
+    if dev.type != "cuda":
+        raise ValueError(f"decode_attention runs on CPU or CUDA tensors, got {dev}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"the CUDA kernel takes head_dim in {HEAD_DIMS}, got {D}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+    out = torch.empty_like(q)
+    lib = load_library("decode_attn")
+    fn = lib.decode_attn_launch
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_float] * 2 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, Hkv, Hq // Hkv,
+             D, DTYPES.index(q.dtype), 1.0 / math.sqrt(D), float(softcap),
+             cuda_stream_handle())
+    check_launch("decode_attn", err)
+    LAUNCHES["decode_attention"] += 1
+    return out

@@ -8,8 +8,9 @@ the kernel's plain PyTorch version, a CUDA tensor runs the CUDA kernel.
 The CUDA sources in `csrc/` are compiled on first use with `nvcc` into
 shared libraries with a plain C interface (loaded with ctypes), under
 `build/kernels/` at the repository root; the library name carries a hash
-of its source, so an edited source is rebuilt. `build_kernels()` starts
-one `nvcc` per source, all at once, and waits for them.
+of its source and of the shared headers (`csrc/*.cuh`), so an edited
+source is rebuilt. `build_kernels()` starts one `nvcc` per source, all at
+once, and waits for them.
 """
 from __future__ import annotations
 
@@ -24,7 +25,7 @@ from typing import Optional
 
 import torch
 
-KERNEL_NAMES = ("ebg_commit", "bsp_superstep")
+KERNEL_NAMES = ("ebg_commit", "bsp_superstep", "segment_reduce", "ebg_membership", "decode_attn")
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = (
@@ -68,7 +69,10 @@ def _source(name: str) -> Path:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha1(_source(name).read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    digest = hashlib.sha1(_source(name).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):  # the sources share these
+        digest.update(header.read_bytes())
+    digest = hashlib.sha1(digest.digest() + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}_{digest[:12]}.so"
 
 
@@ -145,3 +149,17 @@ def check_tensor(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple,
         raise ValueError(f"{name} must be contiguous")
     if device is not None and t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
+
+
+def check_ids(*checks) -> None:
+    """Raise unless every index lies in its range: `checks` are (name, ids,
+    limit) triples, each asking for ids in [0, limit), since a kernel that
+    gathers or commits through them would reach outside its tensors. All
+    bounds come to the host in one transfer."""
+    checks = [c for c in checks if c[1].numel()]
+    if not checks:
+        return
+    bounds = torch.stack([torch.stack(torch.aminmax(ids)) for _, ids, _ in checks]).tolist()
+    for (name, _, limit), (lo, hi) in zip(checks, bounds):
+        if lo < 0 or hi >= limit:
+            raise ValueError(f"{name} has ids in [{lo}, {hi}], outside [0, {limit})")

@@ -31,6 +31,7 @@ import torch
 
 from repro_torch.kernels.dispatch import (
     LAUNCHES,
+    check_ids,
     check_launch,
     check_tensor,
     cuda_stream_handle,
@@ -149,11 +150,7 @@ def _launch_cuda(keep_bits, e_count, v_count, u, v, valid, coef, wu, wv, parts, 
             f"block={block} with p={p} needs {smem} bytes of shared memory "
             f"(limit {MAX_SMEM_BYTES}); use a smaller block"
         )
-    for name, ids in (("u", u), ("v", v)):
-        lo, hi = int(ids.min()), int(ids.max())
-        if lo < 0 or hi >= 32 * vw:
-            raise ValueError(f"{name} has vertex ids in [{lo}, {hi}], outside the bitset's "
-                             f"[0, {32 * vw})")
+    check_ids(("u", u, 32 * vw), ("v", v, 32 * vw))
     lib = load_library("ebg_commit")
     fn = lib.ebg_commit_launch
     fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_void_p]

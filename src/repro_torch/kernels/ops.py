@@ -12,7 +12,10 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import bsp_superstep as _bsp
+from repro_torch.kernels import decode_attn as _attn
 from repro_torch.kernels import ebg_commit as _ebg
+from repro_torch.kernels import ebg_score as _memb
+from repro_torch.kernels import segment_reduce as _seg
 
 INF = _bsp.INF
 
@@ -32,6 +35,28 @@ def pad_stream(lsrc, ldst, weight, *, num_out: int, block_e: int, identity: floa
     weight = torch.cat([weight, torch.full((p, pad), identity, dtype=weight.dtype, device=dev)],
                        dim=1)
     return lsrc, ldst, weight
+
+
+def segment_min_plus(lsrc, ldst, weight, val, *, num_out: int, block_e: int = 512):
+    """out[d] = min(val[d], min over edges into d of val[src] + w), over an
+    [E] stream of dst-sorted edges; pads must carry weight INF. `block_e` is
+    the TPU grid's edge block: the kernel takes any E, so nothing is padded."""
+    del block_e
+    return _seg.segment_reduce(lsrc, ldst, weight, val, num_out=num_out, op="min")
+
+
+def segment_sum_scaled(lsrc, ldst, scale, val, *, num_out: int, block_e: int = 512):
+    """out[d] = sum over edges into d of val[src] * scale; pads carry scale 0.
+    `block_e` is ignored, as in `segment_min_plus`."""
+    del block_e
+    return _seg.segment_reduce(lsrc, ldst, scale, val, num_out=num_out, op="sum")
+
+
+def segment_max(lsrc, ldst, weight, val, *, num_out: int, block_e: int = 512):
+    """out[d] = max(val[d], max over edges into d of val[src]), on the min
+    kernel through negation: `weight` is the pad carrier only (real edges
+    hold 0, pads INF). `block_e` is ignored, as in `segment_min_plus`."""
+    return -segment_min_plus(lsrc, ldst, weight, -val, num_out=num_out, block_e=block_e)
 
 
 def bsp_superstep(lsrc, ldst, weight, val, *, num_out: int, combine: str = "min",
@@ -66,6 +91,21 @@ def commit_coefficients(*, alpha, beta, inv_e, inv_v, eps, device) -> torch.Tens
     (float32(p) / float32(E)), as the reference does."""
     coef = np.array([alpha, beta, inv_e, inv_v, eps], dtype=np.float32)
     return torch.from_numpy(coef).to(device)
+
+
+def ebg_membership(keep_bits, u, v, *, block_e: int = 512):
+    """memb[i, e] = the endpoints of edge e absent from keep[i] (packed
+    bitset). `block_e` is the TPU grid's edge block: the CUDA kernel takes
+    any E, so nothing is padded."""
+    del block_e
+    return _memb.ebg_membership(keep_bits, u, v)
+
+
+def decode_attention(q, k, v, *, softcap: float = 0.0, block_s: int = 512):
+    """Single-token GQA decode attention over a KV cache. `block_s` is the
+    TPU grid's S block: the CUDA kernel streams S in its own chunks."""
+    del block_s
+    return _attn.decode_attention(q, k, v, softcap=softcap)
 
 
 def ebg_commit_block(

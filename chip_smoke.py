@@ -12,15 +12,18 @@ Phases; a failed check raises and the script exits non-zero:
               blocks for ebv (frozen and window), hdrf and greedy — bitwise;
               bsp_superstep on the CC, REACH (two-level and flat addressing,
               the latter with negative values), SSSP and BFS streams (min,
-              bitwise) and the PageRank stream (sum, to rtol 1e-5);
+              bitwise), the PageRank stream and a hub-heavy [p, E] stream
+              (sum, to rtol 1e-5);
               segment_reduce min and max (bitwise) and sum (rtol 1e-5) on
               two workers' CC and PageRank streams and on a hub-heavy
-              stream; ebg_membership on the smoke partition's bitset
-              (bitwise); decode_attention at the parity tests' shapes, f32
-              and bf16, with and without softcap (f32: 2e-5; bf16: one
-              bf16 rounding, rtol 2^-7 and atol 1e-5, which the kernel's
-              output scaled by 1.01 must fail). The segment reductions,
-              membership and attention run through `kernels.ops`.
+              stream, and its id guard (an out-of-range id must raise
+              ValueError, and the next good call succeed); ebg_membership
+              on the smoke partition's bitset (bitwise); decode_attention
+              at the parity tests' shapes, f32 and bf16, with and without
+              softcap (f32: 2e-5; bf16: one bf16 rounding, rtol 2^-7 and
+              atol 1e-5, which the kernel's output scaled by 1.01 must
+              fail). The segment reductions, membership and attention run
+              through `kernels.ops`.
   3. pinned   the smoke graph and twitter_like through GraphPipeline on the
               card (p=32, ebg_chunked): every number the JAX reference gives
               on the CPU, exactly (RF and imbalances to 6 decimals).
@@ -37,7 +40,9 @@ Phases; a failed check raises and the script exits non-zero:
               decode_attention at gemma2_27b's attention widths (Hq 32,
               Hkv 16, head_dim 128, softcap 50; B=8, S=32768, bf16). These
               three are off the main path (the JAX package's too): their
-              launch counts there are 0.
+              launch counts there are 0. segment_reduce is timed with its
+              wrapper's host read of the id flag (ms) and without it
+              (kernel_ms).
 
 Prints the card's name and power limit, the {"kernels": [...]} line, and last
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
@@ -237,6 +242,57 @@ def compare_segment(op, lsrc, ldst, w, val, n):
     return got, err
 
 
+def compare_bsp_sum_hub(dev):
+    """The superstep's sum on a hub-heavy [p, E] stream: one destination
+    owns 90 % of every worker's edges, values of both signs. Returns the
+    max abs err against the plain version."""
+    from repro_torch.kernels import bsp_superstep as bsp
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    p, n, E = PARTS, 1 << 14, 1 << 18
+    other = torch.randint(0, n - 1, (p, E), generator=gen, device=dev)
+    hub = torch.rand((p, E), generator=gen, device=dev) < 0.9
+    ldst = torch.where(hub, 7, other).sort(dim=1).values.to(torch.int32)
+    lsrc = torch.randint(0, n, (p, E), generator=gen, device=dev, dtype=torch.int32)
+    w = torch.rand((p, E), generator=gen, device=dev)
+    val = torch.rand((p, n), generator=gen, device=dev) * 10 - 5
+    deg = torch.randint(0, 4, (p, n), generator=gen, device=dev).float()
+    kw = dict(num_out=n, combine="sum", out_degree=deg)
+    got, it = bsp.bsp_superstep(lsrc, ldst, w, val, **kw)
+    want, want_it = bsp.bsp_superstep_plain(lsrc, ldst, w, val, **kw)
+    check(torch.equal(it, want_it), "bsp_superstep sum on the hub stream: iteration counts")
+    check(torch.allclose(got, want, rtol=SUM_RTOL, atol=SUM_ATOL),
+          f"bsp_superstep sum on the hub stream differs beyond rtol {SUM_RTOL}")
+    return float((got.double() - want.double()).abs().max())
+
+
+def check_id_guard(dev):
+    """segment_reduce on the card refuses out-of-range ids with ValueError
+    (the kernel's guard and its flag), and a good call right after succeeds."""
+    from repro_torch.kernels import ops
+
+    E, n = 4096, 100
+    lsrc = torch.arange(E, device=dev, dtype=torch.int32) % n
+    ldst = torch.sort(lsrc).values
+    w = torch.ones(E, device=dev)
+    val = torch.ones(n, device=dev)
+    for op in ("min", "sum"):
+        entry = getattr(ops, SEGMENT_ENTRIES[op])
+        for name, bad in (("lsrc", n), ("ldst", -1)):
+            args = dict(lsrc=lsrc.clone(), ldst=ldst.clone())
+            args[name][E // 3] = bad
+            try:
+                entry(args["lsrc"], args["ldst"], w, val, num_out=n)
+            except ValueError as e:
+                check(f"{name} has ids" in str(e), f"segment_reduce {op}: wrong refusal {e}")
+            else:
+                raise AssertionError(f"segment_reduce {op} took an out-of-range {name}")
+        got = entry(lsrc, ldst, w, val, num_out=n)
+        want = torch.full((n,), 1.0 if op == "min" else float(E // n), device=dev)
+        want[: E % n] += 0.0 if op == "min" else 1.0
+        check(torch.equal(got, want), f"segment_reduce {op}: a good call after a refused one")
+
+
 def pr_share(val, deg):
     """PageRank's per-edge source share, as the sum kernel's gather takes it."""
     return torch.where(deg > 0, val / deg, 0.0)
@@ -377,8 +433,12 @@ def phase_kernels(dev):
           "flat REACH stats differ from two-level")
     check(np.array_equal(alg.scatter_to_global(flat, vals, g.num_vertices), two.to_global()),
           "flat REACH labels differ from two-level")
-    log(f"kernels: bsp_superstep == plain on the smoke streams; max |err| {errs}")
+    errs["pr/hub"] = compare_bsp_sum_hub(dev)
+    log(f"kernels: bsp_superstep == plain on the smoke streams and a hub stream; "
+        f"max |err| {errs}")
     errs.update(phase_new_kernels(g, pipe, sym, dirn, dev))
+    check_id_guard(dev)
+    log("kernels: segment_reduce refuses out-of-range ids on the card, then takes good ones")
     return errs
 
 
@@ -616,8 +676,10 @@ def measure_kernels(g, pipe, runs, launches, dev):
     entries.append(memb_entry)
     entries.append(measure_attention(dev, launches))
     for e in entries:
-        log(f"kernel {e['name']}: {e['ms']:.4f} ms (plain {e['plain_ms']:.3f} ms, bound "
-            f"{e['bound_ms']:.4f} ms by {e['bound_by']}, library {e['library_ms']})")
+        e["ms_over_bound"] = e["ms"] / e["bound_ms"]
+        log(f"kernel {e['name']}: {e['ms']:.4f} ms (kernel alone {e.get('kernel_ms')}; plain "
+            f"{e['plain_ms']:.3f} ms, bound {e['bound_ms']:.4f} ms by {e['bound_by']}, "
+            f"x{e['ms_over_bound']:.2f}; library {e['library_ms']})")
     return entries
 
 
@@ -630,6 +692,8 @@ def measure_segment(prog, lsrc, ldst, w, val, n, launches):
     entry = getattr(ops, SEGMENT_ENTRIES[op])
     got, err = compare_segment(op, lsrc, ldst, w, val, n)
     ms = cuda_ms(lambda: entry(lsrc, ldst, w, val, num_out=n), reps=20)
+    # The same launches without the wrapper's read of the id flag.
+    kernel_ms = cuda_ms(lambda: seg.launch_unchecked(lsrc, ldst, w, val, n, op), reps=20)
     plain_ms = cuda_ms(lambda: seg.segment_reduce_plain(lsrc, ldst, w, val, n, op=op), reps=3)
     E = lsrc.shape[0]
     idx = ldst.long()
@@ -652,7 +716,7 @@ def measure_segment(prog, lsrc, ldst, w, val, n, launches):
         source="src/repro_torch/kernels/csrc/segment_reduce.cu",
         replaces="src/repro/kernels/segment_reduce.py:94",
         launches=launches.get(f"segment_reduce.{op}", 0), max_abs_err=err, ms=ms,
-        plain_ms=plain_ms, bound_ms=1e3 * bound,
+        kernel_ms=kernel_ms, plain_ms=plain_ms, bound_ms=1e3 * bound,
         bound_by="bytes" if io_bytes / HBM_BYTES_PER_S >= n_ops / F32_FLOPS else "operations",
         library_ms=library_ms, library=library,
         shape=f"worker 0 of the {prog} stream: {E} edges, {val.shape[0]} values, num_out {n}",

@@ -11,14 +11,17 @@ streams lsrc/ldst (int32) and weight (f32), and values val [p, num_out]
       `iters` counts, per worker, the passes that changed something. Pads
       carry weight INF (3e38) and are masked by a select. Streams may
       concatenate direction halves, each dst-sorted.
-  combine="sum": one push-sum sweep with `val/out_degree` fused at the
-      gather (`out_degree` [p, num_out] f32); pads carry weight 0. The
-      stream must be dst-sorted (each destination is summed in edge order).
+  combine="sum": one push-sum sweep of `val/out_degree` (`out_degree`
+      [p, num_out] f32); pads carry weight 0. The f32 products are added
+      in float64 and each sum rounded to f32 once (the reference adds in
+      f32). Each worker's stream must be dst-sorted, as the reference
+      requires: the kernel stores each destination's sum once.
 
 Dispatch: a CPU tensor runs the plain version; a CUDA tensor launches the
-kernel, and anything else raises. The two combines are two CUDA kernels
-(`bsp_min_kernel`, `bsp_sum_kernel`), counted apart in `LAUNCHES` as
-"bsp_superstep.min" and "bsp_superstep.sum".
+kernel, and anything else raises. The two combines are counted apart in
+`LAUNCHES` as "bsp_superstep.min" (`bsp_min_kernel`, one cooperative
+launch) and "bsp_superstep.sum" (`bsp_share_kernel`, `bsp_sum_kernel` and
+`bsp_carry_kernel`, three ordinary launches counted as one call).
 """
 from __future__ import annotations
 
@@ -28,10 +31,10 @@ import torch
 
 from repro_torch.kernels.dispatch import (
     LAUNCHES,
+    c_function,
     check_launch,
     check_tensor,
     cuda_stream_handle,
-    load_library,
 )
 
 INF = 3.0e38  # the min identity pads carry (f32-representable)
@@ -48,12 +51,15 @@ def bsp_superstep_plain(lsrc, ldst, weight, val, num_out: int, *, combine: str =
     src = lsrc.long()
     dst = ldst.long()
     if combine == "sum":
+        # The f32 products are added in float64 and rounded once, as the
+        # kernel adds them: an f32 sum in edge order drifts with the length
+        # of a run (by about 2e-4 over a power-law hub's 10^6 terms).
         share = torch.where(out_degree > 0, val / out_degree, 0.0)
         data = torch.gather(share, 1, src) * weight
         data = torch.where(weight != 0.0, data, 0.0)
-        new = torch.zeros((p, num_out), dtype=torch.float32, device=val.device)
-        new.scatter_add_(1, dst, data)
-        return new, torch.ones((p,), dtype=torch.int32, device=val.device)
+        new = torch.zeros((p, num_out), dtype=torch.float64, device=val.device)
+        new.scatter_add_(1, dst, data.double())
+        return new.float(), torch.ones((p,), dtype=torch.int32, device=val.device)
     mask = weight < INF
     v = val
     iters = torch.zeros((p,), dtype=torch.int32, device=val.device)
@@ -96,17 +102,19 @@ def bsp_superstep(lsrc, ldst, weight, val, *, num_out: int, combine: str = "min"
         raise ValueError("the CUDA superstep kernel needs a non-empty edge stream")
     out = torch.empty((p, num_out), dtype=torch.float32, device=dev)
     iters = torch.empty((p,), dtype=torch.int32, device=dev)
-    scratch = torch.empty_like(out) if combine == "min" else None
-    sync = torch.zeros((p * SYNC_BYTES_PER_WORKER // 4,), dtype=torch.int32, device=dev)
-    lib = load_library("bsp_superstep")
-    fn = lib.bsp_superstep_launch
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    scratch_bytes = c_function("bsp_superstep", "bsp_superstep_scratch_bytes",
+                               [ctypes.c_int] * 4, restype=ctypes.c_longlong)
+    nbytes = scratch_bytes(p, E, num_out, COMBINES.index(combine))
+    scratch = torch.empty(((nbytes + 7) // 8,), dtype=torch.float64, device=dev)
+    sync = (torch.zeros((p * SYNC_BYTES_PER_WORKER // 4,), dtype=torch.int32, device=dev)
+            if combine == "min" else None)
+    fn = c_function("bsp_superstep", "bsp_superstep_launch",
+                    [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     err = fn(
         lsrc.data_ptr(), ldst.data_ptr(), weight.data_ptr(), val.data_ptr(),
         None if out_degree is None else out_degree.data_ptr(),
-        out.data_ptr(), None if scratch is None else scratch.data_ptr(),
-        iters.data_ptr(), sync.data_ptr(),
+        out.data_ptr(), scratch.data_ptr(), iters.data_ptr(),
+        None if sync is None else sync.data_ptr(),
         p, E, num_out, COMBINES.index(combine), int(inner_cap), cuda_stream_handle(),
     )
     check_launch("bsp_superstep", err)

@@ -1,0 +1,222 @@
+// The segmented sum of gathered products shared by the sum kernels of
+// bsp_superstep.cu and segment_reduce.cu.
+//
+// A CTA sums a tile of kTile consecutive edges of one stream at a time,
+//   sum over the edges e of a run of equal ld[e] of (double)(g[ls[e]] * w[e])
+// for edges with w[e] != 0, each product rounded to f32 (as the plain
+// versions round it) and added in f64; pads (w == 0) add nothing, by a
+// select. The caller says where each run's sum goes (`emit`): into an f64
+// accumulator by atomics, or, for a dst-sorted stream, straight to the
+// output. The output is rounded to f32 once.
+//
+// What bounds it on an H100: bytes, the 12 bytes of an edge read once,
+// and the gathers, each a 32-byte L2 sector for 4 useful bytes. Each
+// thread takes kEdges consecutive edges with one 16-byte load each of ls,
+// ld and w (48 bytes in flight a thread; a ragged or unaligned stream
+// takes scalar loads), with the evict-first hint, so that the gathered
+// vector keeps L2. A persistent grid loads a CTA's next tile before it
+// sums the current one. Power-law hubs make destination runs long, so no
+// run is left to one thread: a segmented scan bounded by run heads (in a
+// thread over its edges, in a warp by shuffles, across the CTA's warps in
+// shared memory) gives each thread the part of its first run that lies
+// before it, and the thread holding a run's last edge in the tile emits
+// the run. A hub of k edges is emitted about k / kTile times.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace segsum {
+
+constexpr int kThreads = 256;
+constexpr int kEdges = 4;  // edges a thread
+constexpr int kTile = kThreads * kEdges;
+constexpr int kWarps = kThreads / 32;
+constexpr unsigned kFull = 0xffffffffu;
+// The bits an out-of-range id sets in the error flag.
+constexpr unsigned kBadSrc = 1u, kBadDst = 2u;
+
+inline bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+// The id guard of the segment kernels: the error bits of one edge, which
+// must have 0 <= s < V and 0 <= d < n.
+__device__ __forceinline__ unsigned id_error(int s, int d, int V, int n) {
+  return ((unsigned)s >= (unsigned)V ? kBadSrc : 0u) | ((unsigned)d >= (unsigned)n ? kBadDst : 0u);
+}
+
+// One thread's kEdges consecutive edges.
+struct Edges {
+  int s[kEdges], d[kEdges];
+  float w[kEdges];
+};
+
+// Load edges [e0, e0 + kEdges) of a stream of E edges; edges past the end
+// get d = -1 (a run never emitted) and w = 0. vec: the stream's arrays
+// are 16-byte aligned, so a full group loads as one vector each.
+__device__ __forceinline__ void load_edges(Edges& x, const int* __restrict__ ls,
+                                           const int* __restrict__ ld,
+                                           const float* __restrict__ w, long long E,
+                                           long long e0, bool vec) {
+  if (vec && e0 + kEdges <= E) {
+    const int4 a = __ldcs(reinterpret_cast<const int4*>(ls + e0));
+    const int4 b = __ldcs(reinterpret_cast<const int4*>(ld + e0));
+    const float4 c = __ldcs(reinterpret_cast<const float4*>(w + e0));
+    x.s[0] = a.x, x.s[1] = a.y, x.s[2] = a.z, x.s[3] = a.w;
+    x.d[0] = b.x, x.d[1] = b.y, x.d[2] = b.z, x.d[3] = b.w;
+    x.w[0] = c.x, x.w[1] = c.y, x.w[2] = c.z, x.w[3] = c.w;
+    return;
+  }
+#pragma unroll
+  for (int k = 0; k < kEdges; ++k) {
+    const bool in = e0 + k < E;
+    x.s[k] = in ? __ldcs(ls + e0 + k) : 0;
+    x.d[k] = in ? __ldcs(ld + e0 + k) : -1;
+    x.w[k] = in ? __ldcs(w + e0 + k) : 0.0f;
+  }
+}
+
+// Sum one tile whose edges this thread loaded into `in` (edges e0.. of a
+// stream of E), gathering from g, and call emit(d, sum, first, last) for
+// every run that ends in this thread's edges, with first and last the
+// destinations of the tile's first and last edge. Runs with a negative d
+// (past the stream's end, or an id the guard refused) are not emitted.
+// Every thread of the CTA calls it (it synchronizes the CTA). kCheck: an
+// edge with an id outside [0, V) (ls) or [0, n) (ld) adds nothing and
+// sets its bits in *err.
+template <bool kCheck, typename Emit>
+__device__ __forceinline__ void tile_sum(Edges in, const float* __restrict__ g, long long E,
+                                         long long e0, int V, int n, unsigned* __restrict__ err,
+                                         Emit&& emit) {
+  __shared__ int first_d[kWarps], last_d[kWarps], flagged[kWarps];
+  __shared__ double tail[kWarps];
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  int* const d = in.d;
+
+  double x[kEdges];
+  unsigned bad = 0;
+#pragma unroll
+  for (int k = 0; k < kEdges; ++k) {
+    if (kCheck && e0 + k < E) {
+      const unsigned b = id_error(in.s[k], d[k], V, n);
+      bad |= b;
+      if (b & kBadDst) d[k] = -1;
+      if (b & kBadSrc) in.w[k] = 0.0f;  // no gather through it
+    }
+    x[k] = in.w[k] != 0.0f ? (double)__fmul_rn(__ldg(g + in.s[k]), in.w[k]) : 0.0;
+  }
+  if (kCheck) {
+    bad = __reduce_or_sync(kFull, bad);
+    if (bad && lane == 0) atomicOr(err, bad);
+  }
+
+  // Run heads: an edge whose destination differs from the edge before it
+  // (the tile's first edge is one).
+  if (lane == 0) first_d[warp] = d[0];
+  if (lane == 31) last_d[warp] = d[kEdges - 1];
+  __syncthreads();
+  int prev = __shfl_up_sync(kFull, d[kEdges - 1], 1);
+  int next = __shfl_down_sync(kFull, d[0], 1);
+  if (lane == 0 && warp > 0) prev = last_d[warp - 1];
+  if (lane == 31) next = warp + 1 < kWarps ? first_d[warp + 1] : ~d[kEdges - 1];
+  const int first = first_d[0], last = last_d[kWarps - 1];
+  bool head[kEdges];
+  head[0] = t == 0 || d[0] != prev;
+#pragma unroll
+  for (int k = 1; k < kEdges; ++k) head[k] = d[k] != d[k - 1];
+
+  // The thread's trailing run: its sum, and whether the thread holds a head.
+  double S = 0.0;
+  bool F = false;
+#pragma unroll
+  for (int k = 0; k < kEdges; ++k) {
+    S = head[k] ? x[k] : S + x[k];
+    F |= head[k];
+  }
+  // Inclusive segmented scan of the trailing runs over the warp: lane l
+  // adds lanes back to the nearest one holding a head.
+  const unsigned flags = __ballot_sync(kFull, F);
+  const unsigned upto = flags & (kFull >> (31 - lane));
+  const int start = upto ? 31 - __clz(upto) : 0;
+  double I = S;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const double y = __shfl_up_sync(kFull, I, off);
+    if (lane - off >= start) I += y;
+  }
+  if (lane == 31) {
+    tail[warp] = I;
+    flagged[warp] = flags != 0;
+  }
+  __syncthreads();
+  // Across warps: the run open at this warp's start, summed over the warps
+  // before it back to the nearest one holding a head.
+  double carry_w = 0.0;
+  for (int j = 0; j < warp; ++j) carry_w = flagged[j] ? tail[j] : carry_w + tail[j];
+  if (!upto) I += carry_w;
+  double carry = __shfl_up_sync(kFull, I, 1);
+  if (lane == 0) carry = carry_w;
+
+  // Emit every run that ends in this thread's edges.
+  double run = head[0] ? 0.0 : carry;
+#pragma unroll
+  for (int k = 0; k < kEdges; ++k) {
+    if (k > 0 && head[k]) {
+      if (d[k - 1] >= 0) emit(d[k - 1], run, first, last);
+      run = 0.0;
+    }
+    run += x[k];
+  }
+  if (next != d[kEdges - 1] && d[kEdges - 1] >= 0) emit(d[kEdges - 1], run, first, last);
+}
+
+// Walk the tiles of `rows` streams of E edges each (row r at ls + r * E,
+// ...) with a persistent grid, a tile a CTA at a time, and call
+// on_tile(edges, r, j, e0) for this thread's edges of tile j (counted over
+// all rows) of row r, which start at edge e0 of the row. A CTA loads its
+// next tile before it hands over the current one, so that the stream's
+// loads stay in flight through the gathers and the scan.
+template <typename OnTile>
+__device__ __forceinline__ void for_tiles(const int* __restrict__ ls, const int* __restrict__ ld,
+                                          const float* __restrict__ w, int rows, long long E,
+                                          bool vec, OnTile&& on_tile) {
+  const long long per_row = (E + kTile - 1) / kTile, total = per_row * rows;
+  const long long off = (long long)threadIdx.x * kEdges;
+  Edges cur, nxt;
+  long long j = blockIdx.x;
+  if (j < total) {
+    const long long r = j / per_row;
+    load_edges(cur, ls + r * E, ld + r * E, w + r * E, E, (j - r * per_row) * kTile + off, vec);
+  }
+  for (; j < total; j += gridDim.x) {
+    const long long r = j / per_row, e0 = (j - r * per_row) * kTile + off;
+    const long long jn = j + gridDim.x;
+    if (jn < total) {
+      const long long rn = jn / per_row;
+      load_edges(nxt, ls + rn * E, ld + rn * E, w + rn * E, E, (jn - rn * per_row) * kTile + off,
+                 vec);
+    }
+    on_tile(cur, r, j, e0);
+    cur = nxt;
+  }
+}
+
+// Prepare `kern` for persistent launches and return how many CTAs of
+// kThreads of it the card holds at once, the grid of such a launch
+// (callers keep it, as the queries cost host time). The kernel needs
+// little shared memory, so the rest of the SM's 256 KB goes to L1, which
+// serves the gathers that hit.
+inline long long resident_ctas(const void* kern) {
+  cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout, 0);
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kThreads, 0);
+  return (long long)sms * (per_sm > 0 ? per_sm : 1);
+}
+
+// The grid of a persistent launch over `tiles` tiles.
+inline int persistent_grid(long long resident, long long tiles) {
+  return (int)(tiles < resident ? (tiles > 0 ? tiles : 1) : resident);
+}
+
+}  // namespace segsum

@@ -40,6 +40,7 @@ NVCC_FLAGS = (
 LAUNCHES: collections.Counter = collections.Counter()
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+_FUNCTIONS: dict = {}
 
 
 def reset_launches() -> None:
@@ -126,6 +127,19 @@ def load_library(name: str) -> ctypes.CDLL:
     return lib
 
 
+def c_function(name: str, symbol: str, argtypes: list, restype=ctypes.c_int):
+    """The C entry `symbol` of kernel `name`'s library, its argument and
+    result types set once (the loaded function is kept, so a call pays no
+    setup)."""
+    fn = _FUNCTIONS.get((name, symbol))
+    if fn is None:
+        fn = getattr(load_library(name), symbol)
+        fn.argtypes = argtypes
+        fn.restype = restype
+        _FUNCTIONS[name, symbol] = fn
+    return fn
+
+
 def check_launch(name: str, err: int) -> None:
     """Raise on a non-zero cudaError_t returned by a C launch entry."""
     if err != 0:
@@ -133,7 +147,10 @@ def check_launch(name: str, err: int) -> None:
 
 
 def cuda_stream_handle() -> int:
-    return torch.cuda.current_stream().cuda_stream
+    """PyTorch's current CUDA stream on the current device, as a raw handle
+    (the raw query: building a `torch.cuda.Stream` costs microseconds a
+    launch)."""
+    return torch._C._cuda_getCurrentRawStream(torch.cuda.current_device())
 
 
 def check_tensor(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple,

@@ -1,12 +1,13 @@
-"""The port's kernels on the card: `segment_reduce`, `ebg_membership` and
-`decode_attention` against their plain PyTorch versions (marked `cuda`;
-they skip without a card). This file imports neither jax nor the reference
+"""The port's kernels on the card: `bsp_superstep`'s sum, `segment_reduce`,
+`ebg_membership` and `decode_attention` against their plain PyTorch
+versions, and `segment_reduce`'s id guard (marked `cuda`; they skip
+without a card). This file imports neither jax nor the reference
 package, so it runs on a machine that has only PyTorch:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda_kernels.py
 
-Exact: segment min and max, membership. Tolerance: segment sums rtol 1e-5 /
-atol 1e-6 (atomics add in another order); attention 2e-5 in f32 and, in
+Exact: segment min and max, membership. Tolerance: segment and superstep
+sums rtol 1e-5 / atol 1e-6 (both add in f64, atomics in another order); attention 2e-5 in f32 and, in
 bf16, one rounding of the output (rtol 2^-7, atol 1e-5), which a 1 % error
 fails.
 """
@@ -14,9 +15,11 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import bsp_superstep as pt_bsp
 from repro_torch.kernels import decode_attn as pt_attn
 from repro_torch.kernels import ebg_score as pt_memb
 from repro_torch.kernels import ops as pt_ops
+from repro_torch.kernels import segment_reduce as pt_seg
 
 SUM_RTOL, SUM_ATOL = 1e-5, 1e-6
 ENTRIES = {"min": pt_ops.segment_min_plus, "max": pt_ops.segment_max,
@@ -63,6 +66,87 @@ def test_cuda_segment_reduce_matches_plain(cuda_device, op):
     want = port(*args, num_out=V + 1)
     got = port(*(a.to(cuda_device) for a in args), num_out=V + 1)
     torch.cuda.synchronize()
+    if op == "sum":
+        torch.testing.assert_close(got.cpu(), want, rtol=SUM_RTOL, atol=SUM_ATOL)
+    else:
+        assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E", [1 << 18, (1 << 18) + 3])
+def test_cuda_bsp_superstep_sum_matches_plain(cuda_device, E):
+    """The sum kernel on a hub stream (one destination owns 90 % of each
+    worker's edges), values of both signs, a row length that is a multiple
+    of 4 (16-byte loads) and one that is not (scalar loads), and one worker
+    whose row is all pads."""
+    rng = np.random.default_rng(5)
+    p, n = 4, 6000
+    dst = np.where(rng.random((p, E)) < 0.9, 23, rng.integers(0, n - 1, (p, E)))
+    ldst = np.sort(dst, axis=1).astype(np.int32)
+    lsrc = rng.integers(0, n, (p, E)).astype(np.int32)
+    w = rng.random((p, E)).astype(np.float32)
+    w[:, -7:], ldst[:, -7:] = 0.0, n - 1
+    lsrc[2], ldst[2], w[2] = 0, n - 1, 0.0  # worker 2: all pads
+    val = (rng.random((p, n)) * 10 - 5).astype(np.float32)
+    deg = rng.integers(0, 4, (p, n)).astype(np.float32)
+    args = [_t(a) for a in (lsrc, ldst, w, val)]
+    kw = dict(num_out=n, combine="sum", out_degree=_t(deg))
+    want, want_it = pt_bsp.bsp_superstep(*args, **kw)
+    kw["out_degree"] = kw["out_degree"].to(cuda_device)
+    got, got_it = pt_bsp.bsp_superstep(*(a.to(cuda_device) for a in args), **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got_it.cpu(), want_it)
+    assert (got[2] == 0).all()
+    torch.testing.assert_close(got.cpu(), want, rtol=SUM_RTOL, atol=SUM_ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["min", "sum"])
+def test_cuda_segment_reduce_unaligned_stream(cuda_device, op):
+    """Streams that start off a 16-byte boundary and end in a ragged group
+    take the scalar loads."""
+    rng = np.random.default_rng(6)
+    V, E = 700, 50_001
+    ldst = np.sort(rng.integers(0, V, E + 1)).astype(np.int32)
+    lsrc = rng.integers(0, V, E + 1).astype(np.int32)
+    w = rng.random(E + 1).astype(np.float32)
+    val = (rng.random(V) * 10 - 5).astype(np.float32)
+    args = [_t(a) for a in (lsrc, ldst, w)]
+    want = ENTRIES[op](*(a[1:] for a in args), _t(val), num_out=V)
+    got = ENTRIES[op](*(a.to(cuda_device)[1:] for a in args), _t(val).to(cuda_device),
+                      num_out=V)
+    torch.cuda.synchronize()
+    if op == "sum":
+        torch.testing.assert_close(got.cpu(), want, rtol=SUM_RTOL, atol=SUM_ATOL)
+    else:
+        assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["min", "sum"])
+@pytest.mark.parametrize("name,bad", [("lsrc", 10), ("lsrc", -1), ("ldst", 8), ("ldst", -2)])
+def test_cuda_segment_reduce_rejects_out_of_range_ids(cuda_device, monkeypatch, op, name, bad):
+    """The kernel's guard refuses an id outside val (lsrc) or the output
+    (ldst) with the CPU path's ValueError; the next good call succeeds, so
+    the flag is reset, and it takes no aminmax."""
+    rng = np.random.default_rng(8)
+    V, n, E = 10, 8, 5000
+    good = dict(lsrc=rng.integers(0, V, E), ldst=np.sort(rng.integers(0, n, E)))
+    good = {k: _t(a.astype(np.int32)).to(cuda_device) for k, a in good.items()}
+    w = _t(rng.random(E).astype(np.float32)).to(cuda_device)
+    val = _t(rng.random(V).astype(np.float32)).to(cuda_device)
+    bad_args = dict(good)
+    bad_args[name] = good[name].clone()
+    bad_args[name][E // 2] = bad
+    with pytest.raises(ValueError, match=f"{name} has ids"):
+        pt_seg.segment_reduce(bad_args["lsrc"], bad_args["ldst"], w, val, num_out=n, op=op)
+    calls = []
+    aminmax = torch.aminmax
+    monkeypatch.setattr(torch, "aminmax", lambda *a, **k: calls.append(1) or aminmax(*a, **k))
+    got = pt_seg.segment_reduce(good["lsrc"], good["ldst"], w, val, num_out=n, op=op)
+    want = pt_seg.segment_reduce_plain(*(t.cpu() for t in (good["lsrc"], good["ldst"], w, val)),
+                                       n, op=op)
+    assert not calls
     if op == "sum":
         torch.testing.assert_close(got.cpu(), want, rtol=SUM_RTOL, atol=SUM_ATOL)
     else:

@@ -86,6 +86,64 @@ def test_superstep_matches_reference_oracle(combine, negative, inner_cap):
             np.testing.assert_array_equal(p_val.numpy(), np.asarray(r_val))
 
 
+def _sum_streams(kind, seed=3, p=4, V=300, E=4000):
+    """[p, E] dst-sorted sum streams with pads (weight 0) at the dump slot.
+    hub: one destination owns 90 % of every worker's edges; both_signs:
+    values of both signs, so that sums cancel."""
+    rng = np.random.default_rng(seed)
+    lsrc = rng.integers(0, V, (p, E)).astype(np.int32)
+    dst = rng.integers(0, V - 1, (p, E))
+    if kind == "hub":
+        dst = np.where(rng.random((p, E)) < 0.9, 17, dst)
+    ldst = np.sort(dst, axis=1).astype(np.int32)
+    w = (rng.random((p, E)) + 0.1).astype(np.float32)
+    w[:, -5:], ldst[:, -5:] = 0.0, V - 1
+    val = (rng.random((p, V)) * 10).astype(np.float32)
+    if kind == "both_signs":
+        val -= 5.0
+    deg = rng.integers(0, 6, (p, V)).astype(np.float32)
+    return lsrc, ldst, w, val, deg
+
+
+@pytest.mark.parametrize("kind", ["hub", "both_signs"])
+def test_superstep_sum_matches_reference_oracle(kind):
+    """The plain sum adds in float64 and rounds once; the reference adds in
+    f32 in edge order. The port equals the exact sum of the f32 products
+    rounded to f32 (to 1e-7), nearer to it than the reference everywhere,
+    and the reference to rtol 1e-5 / atol 1e-8: on the hub as it is; on
+    sums that cancel plus the reference's own rounding, since an f32 sum of
+    k terms in order is off the exact sum by up to k * 2^-24 * (sum of
+    |terms|), which exceeds 1e-5 of a sum that has cancelled."""
+    lsrc, ldst, w, val, deg = _sum_streams(kind)
+    if kind == "hub":
+        assert (ldst == 17).mean(axis=1).min() > 0.85
+    else:
+        assert (val < 0).any() and (val > 0).any()
+    j, t = jnp.asarray, torch.from_numpy
+    p, n = val.shape
+    kw = dict(num_out=n, combine="sum")
+    r_val, r_it = ref_ops.bsp_superstep(j(lsrc), j(ldst), j(w), j(val), impl="ref",
+                                        out_degree=j(deg), **kw)
+    p_val, p_it = pt_ops.bsp_superstep(t(lsrc), t(ldst), t(w), t(val), out_degree=t(deg), **kw)
+    np.testing.assert_array_equal(p_it.numpy(), np.asarray(r_it))
+    # The exact sums, in float64, of the f32 products the reference takes.
+    share = np.where(deg > 0, val / np.where(deg > 0, deg, 1), 0).astype(np.float32)
+    terms = np.take_along_axis(share, lsrc, 1) * w
+    rows = np.repeat(np.arange(p), lsrc.shape[1])
+    exact, mag, count = (np.zeros((p, n)) for _ in range(3))
+    np.add.at(exact, (rows, ldst.ravel()), terms.ravel().astype(np.float64))
+    np.add.at(mag, (rows, ldst.ravel()), np.abs(terms.ravel()).astype(np.float64))
+    np.add.at(count, (rows, ldst.ravel()), 1.0)
+    got, ref = p_val.numpy(), np.asarray(r_val)
+    np.testing.assert_allclose(got, exact.astype(np.float32), rtol=1e-7, atol=0.0)
+    assert (np.abs(got - exact) <= np.abs(ref - exact)).all()
+    if kind == "hub":
+        np.testing.assert_allclose(got, ref, rtol=RTOL, atol=ATOL)
+    else:
+        ref_rounding = count * 2.0**-24 * mag
+        assert (np.abs(got - ref) <= ATOL + RTOL * np.abs(ref) + ref_rounding).all()
+
+
 def test_superstep_wrapper_rejects_bad_arguments():
     lsrc, ldst, w, val, deg = (torch.from_numpy(a) for a in _streams())
     with pytest.raises(ValueError, match="combine"):

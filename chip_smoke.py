@@ -9,7 +9,9 @@ Phases; a failed check raises and the script exits non-zero:
               nvcc (one process per source, all at once) into build/kernels/.
   2. kernels  hold each kernel against its plain PyTorch version on the card,
               on the smoke graph's real state: ebg_commit over a range of
-              blocks for ebv (frozen and window), hdrf and greedy — bitwise;
+              blocks for ebv (frozen and window), hdrf and greedy, block by
+              block and as one stream launch, and at p=64 (the block-wide
+              kernel) — bitwise; its two bitset transposes (bitwise);
               bsp_superstep on the CC, REACH (two-level and flat addressing,
               the latter with negative values), SSSP and BFS streams (min,
               bitwise), the PageRank stream and a hub-heavy [p, E] stream
@@ -38,11 +40,13 @@ Phases; a failed check raises and the script exits non-zero:
               on one worker's CC and PageRank streams, ebg_membership on
               the full partition's bitset over 2^22 stream edges, and
               decode_attention at gemma2_27b's attention widths (Hq 32,
-              Hkv 16, head_dim 128, softcap 50; B=8, S=32768, bf16). These
-              three are off the main path (the JAX package's too): their
-              launch counts there are 0. segment_reduce is timed with its
-              wrapper's host read of the id flag (ms) and without it
-              (kernel_ms).
+              Hkv 16, head_dim 128; S=32768, bf16) at B=8 and B=1, with
+              softcap 50 and with softcap 0, where SDPA computes the same
+              function. These three are off the main path (the JAX
+              package's too): their launch counts there are 0.
+              segment_reduce is timed with its wrapper's host read of the
+              id flag (ms) and without it (kernel_ms). ebg_commit's entry
+              carries the full stream's time a block.
 
 Prints the card's name and power limit, the {"kernels": [...]} line, and last
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
@@ -81,7 +85,11 @@ SEGMENT_ENTRIES = {"min": "segment_min_plus", "max": "segment_max", "sum": "segm
 # The parity tests' decode shapes (B, Hq, Hkv, D, S), and gemma2_27b's
 # attention widths (src/repro/configs/gemma2_27b.py) at B=8, S=32768.
 ATTN_SHAPES = ((2, 8, 4, 64, 512), (1, 4, 4, 32, 1024), (3, 12, 2, 64, 512))
-GEMMA2_27B = dict(B=8, Hq=32, Hkv=16, D=128, S=32_768, softcap=50.0)
+GEMMA2_27B = dict(Hq=32, Hkv=16, D=128, S=32_768)
+ATTN_CASES = (  # (entry name, batch, softcap)
+    ("decode_attention", 8, 50.0), ("decode_attention.softcap0", 8, 0.0),
+    ("decode_attention.B1", 1, 50.0), ("decode_attention.B1.softcap0", 1, 0.0),
+)
 MEMB_EDGES = 1 << 22  # the membership slice of the full-width stream
 
 # The JAX reference on the CPU (compute_backend="xla", all defaults,
@@ -181,15 +189,16 @@ def compare_commit(state, st, sl, window):
     return got[:3]
 
 
-def commit_blocks(graph, scorer, window, dev, first, count, block=256, order=None):
+def commit_blocks(graph, scorer, window, dev, first, count, block=256, order=None,
+                  parts=PARTS):
     """Blocks [first, first+count) of `scorer`'s stream over `graph`, each held
     against the plain version, from the real state the kernel's stream entry
     reaches after `first` blocks. Returns (stream, state at `first`)."""
     from repro_torch.core import streaming
     from repro_torch.kernels import ebg_commit as ebg
 
-    st = streaming.prepare_stream(graph, PARTS, scorer, block=block, order=order, device=dev)
-    state = st.new_state(PARTS, graph.num_vertices)
+    st = streaming.prepare_stream(graph, parts, scorer, block=block, order=order, device=dev)
+    state = st.new_state(parts, graph.num_vertices)
     if first:
         sl = slice(0, first * block)
         ebg.ebg_commit_stream(*state, st.u[sl], st.v[sl], st.valid[sl], st.coef, block=block,
@@ -200,6 +209,47 @@ def commit_blocks(graph, scorer, window, dev, first, count, block=256, order=Non
     for b in range(first, first + count):
         state = compare_commit(state, st, slice(b * block, (b + 1) * block), window)
     return st, start
+
+
+def compare_commit_stream(start, st, first, count, window):
+    """Blocks [first, first+count) as one stream launch on the card (the
+    pipelined kernel carries the state across block boundaries) and through
+    the plain version on host copies; bitwise."""
+    from repro_torch.kernels import ebg_commit as ebg
+
+    sl = slice(first * st.block, (first + count) * st.block)
+    edges = (st.u[sl], st.v[sl], st.valid[sl])
+    kw = dict(block=st.block, balance=st.balance, window=window)
+    wts = (None, None) if st.wu is None else (st.wu[sl], st.wv[sl])
+    got_state = [t.clone() for t in start]
+    got = ebg.ebg_commit_stream(*got_state, *edges, st.coef, wu=wts[0], wv=wts[1], **kw)
+    want_state = [t.cpu() for t in start]
+    want = ebg.ebg_commit_stream(*want_state, *(t.cpu() for t in edges), st.coef.cpu(),
+                                 wu=None if wts[0] is None else wts[0].cpu(),
+                                 wv=None if wts[1] is None else wts[1].cpu(), **kw)
+    check(torch.equal(got.cpu(), want), "ebg_commit stream parts differ from the plain version")
+    for name, g, w in zip(("keep_bits", "e_count", "v_count"), got_state, want_state):
+        check(torch.equal(g.cpu(), w), f"ebg_commit stream {name} differs from the plain version")
+
+
+def compare_transposes(dev, keep=None):
+    """The commit's bitset transposes against their plain versions, and the
+    round trip; bitwise. `keep` defaults to a random [33, 1000] bitset."""
+    from repro_torch.kernels import ebg_commit as ebg
+
+    if keep is None:
+        gen = torch.Generator(device=dev).manual_seed(5)
+        keep = torch.randint(-2**31, 2**31 - 1, (33, 1000), generator=gen, device=dev,
+                             dtype=torch.int32)
+    p = keep.shape[0]
+    memb = ebg.keep_bits_to_memb(keep)
+    check(torch.equal(memb, ebg.keep_bits_to_memb_plain(keep)),
+          "keep_bits_to_memb differs from the plain version")
+    back = ebg.memb_to_keep_bits(memb, p)
+    check(torch.equal(back, ebg.memb_to_keep_bits_plain(memb, p)),
+          "memb_to_keep_bits differs from the plain version")
+    check(torch.equal(back, keep), "memb_to_keep_bits does not invert keep_bits_to_memb")
+    return memb
 
 
 def compare_superstep(sub, prog, num_vertices, source=0):
@@ -408,9 +458,15 @@ def phase_kernels(dev):
     g = rmat(**SMOKE)
     nblocks = -(-g.num_edges // 256)
     for scorer, window in (("ebv", False), ("ebv", True), ("hdrf", False), ("greedy", False)):
-        commit_blocks(g, scorer, window, dev, first=100, count=6)
+        st, start = commit_blocks(g, scorer, window, dev, first=100, count=6)
+        compare_commit_stream(start, st, 100, 8, window)
     commit_blocks(g, "ebv", False, dev, first=nblocks - 2, count=2)  # the padded tail block
-    log("kernels: ebg_commit == plain on 26 smoke blocks (ebv frozen/window, hdrf, greedy)")
+    for scorer, window in (("ebv", False), ("hdrf", True)):  # p > 32: the block-wide kernel
+        st, start = commit_blocks(g, scorer, window, dev, first=50, count=2, parts=64)
+        compare_commit_stream(start, st, 50, 4, window)
+    compare_transposes(dev)
+    log("kernels: ebg_commit == plain on 30 smoke blocks (ebv frozen/window, hdrf, greedy; "
+        "p=32 and p=64), as single blocks and as streams; its transposes == plain")
 
     pipe = GraphPipeline(g, device=dev).partition("ebg_chunked", parts=PARTS)
     sym = pipe.subgraphs_for(symmetrize=True)
@@ -528,7 +584,8 @@ def phase_full(dev, log2_edges):
         runs[prog] = st(f"run_{prog}", pipe.run, prog)
     launches = dict(dispatch.LAUNCHES)
     log(f"full: launches on the main path {launches}")
-    for k in ("ebg_commit", "bsp_superstep.min", "bsp_superstep.sum"):
+    for k in ("ebg_commit", "ebg_commit.keep_to_memb", "ebg_commit.memb_to_keep",
+              "bsp_superstep.min", "bsp_superstep.sum"):
         check(launches.get(k, 0) > 0, f"the main path launched {k} no time")
 
     # ---- what came out, against plain oracles on the card.
@@ -609,6 +666,7 @@ def measure_kernels(g, pipe, runs, launches, dev):
     check(torch.equal(keep, keep_bits_of(stream.u[:E], stream.v[:E], parts[:E], PARTS,
                                          g.num_vertices)),
           "the stream's bitset is not its partition's")
+    transpose_entries = measure_transposes(keep, launches)
     memb_entry = measure_membership(keep, stream.u[:MEMB_EDGES], stream.v[:MEMB_EDGES],
                                     launches)
     entries = [dict(
@@ -619,7 +677,7 @@ def measure_kernels(g, pipe, runs, launches, dev):
         bound_ms=1e3 * block_bytes / HBM_BYTES_PER_S, bound_by="bytes", library_ms=None,
         shape=f"one block: p={PARTS}, B={B}, bitset {tuple(keep.shape)}",
         stream_ms=stream_ms, stream_ms_per_block=stream_ms / nblocks,
-    )]
+    )] + transpose_entries
     del stream, state, args, fresh, parts, keep
     segment_entries = []
 
@@ -674,7 +732,7 @@ def measure_kernels(g, pipe, runs, launches, dev):
         torch.cuda.empty_cache()
     entries += segment_entries
     entries.append(memb_entry)
-    entries.append(measure_attention(dev, launches))
+    entries += [measure_attention(dev, launches, *case) for case in ATTN_CASES]
     for e in entries:
         e["ms_over_bound"] = e["ms"] / e["bound_ms"]
         log(f"kernel {e['name']}: {e['ms']:.4f} ms (kernel alone {e.get('kernel_ms')}; plain "
@@ -723,6 +781,34 @@ def measure_segment(prog, lsrc, ldst, w, val, n, launches):
     )
 
 
+def measure_transposes(keep, launches):
+    """The commit's two bitset transposes on the full partition's bitset."""
+    from repro_torch.kernels import ebg_commit as ebg
+
+    memb = compare_transposes(keep.device, keep)
+    p = keep.shape[0]
+    entries = []
+    for name, fn, plain, src, dst in (
+        ("ebg_commit.keep_to_memb", lambda: ebg.keep_bits_to_memb(keep),
+         lambda: ebg.keep_bits_to_memb_plain(keep), keep, memb),
+        ("ebg_commit.memb_to_keep", lambda: ebg.memb_to_keep_bits(memb, p),
+         lambda: ebg.memb_to_keep_bits_plain(memb, p), memb, keep),
+    ):
+        io_bytes = nbytes(src, dst)
+        n_ops = 2.0 * 32 * src.numel()  # a bit test and a ballot a bit of each word
+        bound = max(io_bytes / HBM_BYTES_PER_S, n_ops / F32_FLOPS)
+        entries.append(dict(
+            name=name, route="cuda", source="src/repro_torch/kernels/csrc/ebg_commit.cu",
+            replaces="src/repro/kernels/ebg_commit.py:124", launches=launches.get(name, 0),
+            max_abs_err=0.0,  # compare_transposes demands bitwise equality
+            ms=cuda_ms(fn, reps=20), plain_ms=cuda_ms(plain, reps=2), bound_ms=1e3 * bound,
+            bound_by="bytes" if io_bytes / HBM_BYTES_PER_S >= n_ops / F32_FLOPS else "operations",
+            library_ms=None, library=None,
+            shape=f"keep {tuple(keep.shape)} <-> memb {tuple(memb.shape)} int32",
+        ))
+    return entries
+
+
 def measure_membership(keep, u, v, launches):
     """ebg_membership over the full partition's bitset and a stream slice."""
     from repro_torch.kernels import ebg_score, ops
@@ -745,39 +831,45 @@ def measure_membership(keep, u, v, launches):
     )
 
 
-def measure_attention(dev, launches):
-    """decode_attention at gemma2_27b's attention widths, bf16."""
+def measure_attention(dev, launches, name, B, softcap):
+    """decode_attention at gemma2_27b's attention widths, bf16, batch B.
+    At softcap 0, SDPA computes the same function and is timed beside it."""
     from repro_torch.kernels import decode_attn, ops
 
     c = GEMMA2_27B
-    B, Hq, Hkv, D, S = c["B"], c["Hq"], c["Hkv"], c["D"], c["S"]
+    Hq, Hkv, D, S = c["Hq"], c["Hkv"], c["D"], c["S"]
     q, k, v = attention_inputs(B, Hq, Hkv, D, S, torch.bfloat16, dev, seed=27)
-    got, reading = compare_attention(q, k, v, c["softcap"])
-    ms = cuda_ms(lambda: ops.decode_attention(q, k, v, softcap=c["softcap"]), reps=10)
-    plain_ms = cuda_ms(lambda: decode_attn.decode_attention_plain(q, k, v,
-                                                                  softcap=c["softcap"]), reps=2)
-    # SDPA has no softcap: timed without it, on the same tensors.
-    q4, k4, v4 = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    library_ms = cuda_ms(lambda: sdpa(q4, k4, v4, enable_gqa=True), reps=10)
+    got, reading = compare_attention(q, k, v, softcap)
+    ms = cuda_ms(lambda: ops.decode_attention(q, k, v, softcap=softcap), reps=20)
+    plain_ms = cuda_ms(lambda: decode_attn.decode_attention_plain(q, k, v, softcap=softcap),
+                       reps=2)
+    library_ms = library = None
+    if not softcap:
+        q4, k4, v4 = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        library_ms = cuda_ms(lambda: sdpa(q4, k4, v4, enable_gqa=True), reps=20)
+        library = "F.scaled_dot_product_attention(enable_gqa=True)"
+        del q4, k4, v4
     io_bytes = nbytes(q, k, v, got)
     n_ops = 4.0 * B * Hq * S * D  # q.k and p.v, a multiply and an add each
     bound = max(io_bytes / HBM_BYTES_PER_S, n_ops / BF16_FLOPS)
-    del q, k, v, q4, k4, v4, got
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    nsplit = decode_attn.split_count(B, S, Hkv, Hq // Hkv, sms,
+                                     decode_attn.tile_keys(D, torch.bfloat16))
+    del q, k, v, got
     torch.cuda.empty_cache()
     return dict(
-        name="decode_attention", route="cuda",
+        name=name, route="cuda",
         source="src/repro_torch/kernels/csrc/decode_attn.cu",
         replaces="src/repro/kernels/decode_attn.py:61",
         launches=launches.get("decode_attention", 0), max_abs_err=reading["max_abs_err"], ms=ms,
         plain_ms=plain_ms, bound_ms=1e3 * bound,
         bound_by="bytes" if io_bytes / HBM_BYTES_PER_S >= n_ops / BF16_FLOPS else "operations",
-        library_ms=library_ms,
-        library="F.scaled_dot_product_attention(enable_gqa=True), without the softcap",
+        library_ms=library_ms, library=library,
         limit=f"rtol {ATTN_TOL[torch.bfloat16][0]}, atol {ATTN_TOL[torch.bfloat16][1]}",
         over_limit=reading["over_limit"], control_over_limit=reading["control_over_limit"],
         shape=f"gemma2_27b attention: B={B}, Hq={Hq}, Hkv={Hkv}, D={D}, S={S}, bf16, "
-              f"softcap {c['softcap']}",
+              f"softcap {softcap}, {nsplit} splits",
     )
 
 

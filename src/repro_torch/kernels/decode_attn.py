@@ -10,8 +10,10 @@ softmax and the weighted sum of v are taken in f32, and the result
 [B, Hq, D] is cast to q's dtype.
 
 Dispatch: a CPU tensor runs the plain version; a CUDA tensor launches the
-kernel (head_dim 32, 64, 128 or 256), and anything else raises. Launches
-are counted in `LAUNCHES` as "decode_attention".
+kernel (head_dim 32, 64, 128 or 256), and anything else raises. The kernel
+splits S across CTAs (`split_count`) and merges the splits' partial states
+in a second launch on the same stream; each call counts once in `LAUNCHES`
+as "decode_attention".
 """
 from __future__ import annotations
 
@@ -22,14 +24,44 @@ import torch
 
 from repro_torch.kernels.dispatch import (
     LAUNCHES,
+    c_function,
     check_launch,
     check_tensor,
     cuda_stream_handle,
-    load_library,
 )
 
 DTYPES = (torch.float32, torch.bfloat16)
-HEAD_DIMS = (32, 64, 128, 256)  # the CUDA kernel's: D/32 columns a lane
+HEAD_DIMS = (32, 64, 128, 256)  # the CUDA kernel's: 16-byte chunks, four warps a row
+SPLIT_KEYS = 1024  # a split streams at most this many keys ...
+WAVE_CTAS = 2 * 3  # ... and the grid fills at least two waves of three CTAs an SM
+MAX_SPLITS = 1024
+
+
+def tile_keys(D: int, dtype: torch.dtype) -> int:
+    """Keys a tile of the kernel's ring (`Shape<T, D>::TK` in the source):
+    rows of 512 bytes or more take 32-key tiles, shorter rows 64."""
+    return 32 if D * torch.finfo(dtype).bits // 8 >= 512 else 64
+
+
+def split_count(B: int, S: int, Hkv: int, G: int, sms: int, tile: int = 64) -> int:
+    """How many ranges of S the kernel splits the cache into: ranges of at
+    most SPLIT_KEYS keys, and enough CTAs for WAVE_CTAS per SM, in whole
+    tiles of `tile` keys and at most MAX_SPLITS."""
+    gc = min(8, 1 << (G - 1).bit_length())  # query rows a CTA (the kernel's rule)
+    rows = B * Hkv * -(-G // gc)
+    tiles = -(-S // tile)
+    want = max(-(-S // SPLIT_KEYS), -(-WAVE_CTAS * sms // rows))
+    per = -(-tiles // min(want, tiles, MAX_SPLITS))  # tiles a split
+    return -(-tiles // per)
+
+
+_SMS: dict = {}
+
+
+def _sm_count(dev: torch.device) -> int:
+    if dev not in _SMS:
+        _SMS[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
+    return _SMS[dev]
 
 
 def decode_attention_plain(q, k, v, *, softcap: float = 0.0):
@@ -69,15 +101,18 @@ def decode_attention(q, k, v, *, softcap: float = 0.0):
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
+    G = Hq // Hkv
+    nsplit = split_count(B, S, Hkv, G, _sm_count(dev), tile_keys(D, q.dtype))
+    workspace = c_function("decode_attn", "decode_attn_workspace", [ctypes.c_int] * 5,
+                           ctypes.c_longlong)(B, Hkv, G, D, nsplit)
+    ws = torch.empty((max(workspace, 1),), dtype=torch.float32, device=dev)
     out = torch.empty_like(q)
-    lib = load_library("decode_attn")
-    fn = lib.decode_attn_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_float] * 2 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, Hkv, Hq // Hkv,
-             D, DTYPES.index(q.dtype), 1.0 / math.sqrt(D), float(softcap),
-             cuda_stream_handle())
+    fn = c_function("decode_attn", "decode_attn_launch",
+                    [ctypes.c_void_p] * 5 + [ctypes.c_longlong] + [ctypes.c_int] * 6
+                    + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p])
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), ws.data_ptr(),
+             ws.numel(), B, S, Hkv, G, D, DTYPES.index(q.dtype), 1.0 / math.sqrt(D),
+             float(softcap), nsplit, cuda_stream_handle())
     check_launch("decode_attn", err)
     LAUNCHES["decode_attention"] += 1
     return out

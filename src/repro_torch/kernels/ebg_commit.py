@@ -20,7 +20,12 @@ operation rounded on its own (the kernel writes the FMAs out and builds
 with -fmad=false; the plain version emulates them exactly in float64).
 
 Dispatch: a CPU tensor runs the plain version; a CUDA tensor launches the
-kernel, and anything else raises.
+kernel, and anything else raises. On the card a launch works on the
+bitset's vertex-major transpose `memb` [32·⌈V/32⌉, ⌈p/32⌉] (bit i of word
+w: part 32w+i holds the vertex), made by `keep_bits_to_memb` before it and
+turned back by `memb_to_keep_bits` after it — two small kernels, counted
+as "ebg_commit.keep_to_memb" and "ebg_commit.memb_to_keep" beside the
+commit's "ebg_commit". Their plain versions serve the tests.
 """
 from __future__ import annotations
 
@@ -31,11 +36,11 @@ import torch
 
 from repro_torch.kernels.dispatch import (
     LAUNCHES,
+    c_function,
     check_ids,
     check_launch,
     check_tensor,
     cuda_stream_handle,
-    load_library,
 )
 
 BALANCE_MODES = ("static", "range")
@@ -62,6 +67,87 @@ def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     even = (s.view(torch.int64) & 1) == 0
     away = torch.nextafter(s, err * math.inf)  # NaN where err == 0: not taken
     return torch.where((err != 0) & even, away, s).float()
+
+
+def _unpack(words: torch.Tensor) -> torch.Tensor:
+    """[r, n] int32 words -> [r, 32n] bool: bit k of word c is column 32c+k."""
+    shifts = torch.arange(32, dtype=torch.int32, device=words.device)
+    return ((words[..., None] >> shifts) & 1).bool().reshape(words.shape[0], -1)
+
+
+def pack_keep_bits(keep_bool: torch.Tensor) -> torch.Tensor:
+    """[p, V] bool -> [p, ceil(V/32)] packed bitset in int32 words (the
+    inverse of `_unpack`; also `ops.pack_keep_bits`)."""
+    p, V = keep_bool.shape
+    pad = (-V) % 32
+    kb = torch.nn.functional.pad(keep_bool.to(torch.int64), (0, pad))
+    words = kb.reshape(p, -1, 32)
+    shifts = torch.arange(32, dtype=torch.int64, device=keep_bool.device)
+    packed = (words << shifts).sum(dim=-1)
+    packed = torch.where(packed >= 1 << 31, packed - (1 << 32), packed)
+    return packed.to(torch.int32)
+
+
+def keep_bits_to_memb_plain(keep_bits: torch.Tensor) -> torch.Tensor:
+    """keep [p, vw] -> memb [32·vw, ⌈p/32⌉]: bit i of memb[x, w] is bit
+    (x mod 32) of keep[32w+i, x // 32]; parts past p read 0."""
+    p = keep_bits.shape[0]
+    bits = _unpack(keep_bits)  # [p, 32·vw]
+    pad = torch.zeros(((-p) % 32, bits.shape[1]), dtype=torch.bool, device=bits.device)
+    return pack_keep_bits(torch.cat([bits, pad]).T)
+
+
+def memb_to_keep_bits_plain(memb: torch.Tensor, num_parts: int) -> torch.Tensor:
+    """memb [32·vw, W] -> keep [num_parts, vw], the inverse of
+    `keep_bits_to_memb_plain` (bits of parts past num_parts are dropped)."""
+    return pack_keep_bits(_unpack(memb)[:, :num_parts].T)
+
+
+def _transpose(src, dst, p: int, vw: int, to_memb: bool) -> None:
+    fn = c_function("ebg_commit", "ebg_memb_transpose",
+                    [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    check_launch("ebg_memb_transpose", fn(src.data_ptr(), dst.data_ptr(), p, vw, int(to_memb),
+                                          cuda_stream_handle()))
+
+
+def keep_bits_to_memb(keep_bits: torch.Tensor) -> torch.Tensor:
+    """The vertex-major transpose of a packed bitset; see
+    `keep_bits_to_memb_plain`. A CUDA tensor launches the transpose kernel."""
+    if keep_bits.ndim != 2:
+        raise ValueError(f"keep_bits must be [p, words], got shape {tuple(keep_bits.shape)}")
+    p, vw = keep_bits.shape
+    check_tensor("keep_bits", keep_bits, torch.int32, (p, vw))
+    if keep_bits.device.type == "cpu":
+        return keep_bits_to_memb_plain(keep_bits)
+    if keep_bits.device.type != "cuda":
+        raise ValueError(f"keep_bits_to_memb runs on CPU or CUDA tensors, got {keep_bits.device}")
+    memb = torch.empty((32 * vw, (p + 31) // 32), dtype=torch.int32, device=keep_bits.device)
+    _transpose(keep_bits, memb, p, vw, True)
+    LAUNCHES["ebg_commit.keep_to_memb"] += 1
+    return memb
+
+
+def memb_to_keep_bits(memb: torch.Tensor, num_parts: int, out=None) -> torch.Tensor:
+    """The packed bitset [num_parts, ⌈V/32⌉] of a vertex-major `memb`,
+    written into `out` when it is given; see `memb_to_keep_bits_plain`. A
+    CUDA tensor launches the transpose kernel."""
+    if memb.ndim != 2 or memb.shape[0] % 32 or memb.shape[1] != (num_parts + 31) // 32:
+        raise ValueError(f"memb of {num_parts} parts must be [32·vw, {(num_parts + 31) // 32}], "
+                         f"got shape {tuple(memb.shape)}")
+    vw = memb.shape[0] // 32
+    check_tensor("memb", memb, torch.int32, tuple(memb.shape))
+    if out is not None:
+        check_tensor("out", out, torch.int32, (num_parts, vw), memb.device)
+    if memb.device.type == "cpu":
+        keep = memb_to_keep_bits_plain(memb, num_parts)
+        return keep if out is None else out.copy_(keep)
+    if memb.device.type != "cuda":
+        raise ValueError(f"memb_to_keep_bits runs on CPU or CUDA tensors, got {memb.device}")
+    if out is None:
+        out = torch.empty((num_parts, vw), dtype=torch.int32, device=memb.device)
+    _transpose(memb, out, num_parts, vw, False)
+    LAUNCHES["ebg_commit.memb_to_keep"] += 1
+    return out
 
 
 def _miss(keep_bits: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
@@ -140,32 +226,34 @@ def _check_args(keep_bits, e_count, v_count, u, v, valid, coef, wu, wv, balance,
 
 
 def _launch_cuda(keep_bits, e_count, v_count, u, v, valid, coef, wu, wv, parts, *,
-                 p, vw, block, nblocks, balance, window):
+                 p, vw, block, nblocks, balance, window, keep_out):
+    """Transpose the bitset, walk the blocks on it, and transpose it back
+    into `keep_out` (which may be `keep_bits`)."""
     if p > MAX_PARTS:
         raise ValueError(f"the CUDA commit kernel takes at most {MAX_PARTS} parts, got {p}")
     W = (p + 31) // 32
-    smem = block * (8 * W + 24) + 768
+    smem = block * (8 * W + 24) + 768  # the block-wide kernel's; any shape that runs fits it
     if smem > MAX_SMEM_BYTES:
         raise ValueError(
             f"block={block} with p={p} needs {smem} bytes of shared memory "
             f"(limit {MAX_SMEM_BYTES}); use a smaller block"
         )
     check_ids(("u", u, 32 * vw), ("v", v, 32 * vw))
-    lib = load_library("ebg_commit")
-    fn = lib.ebg_commit_launch
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    memb = keep_bits_to_memb(keep_bits)
+    fn = c_function("ebg_commit", "ebg_commit_launch",
+                    [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
     weighted = wu is not None
     err = fn(
-        keep_bits.data_ptr(), e_count.data_ptr(), v_count.data_ptr(),
+        memb.data_ptr(), e_count.data_ptr(), v_count.data_ptr(),
         u.data_ptr(), v.data_ptr(), valid.data_ptr(),
         wu.data_ptr() if weighted else None, wv.data_ptr() if weighted else None,
         coef.data_ptr(), parts.data_ptr(),
-        p, vw, block, nblocks, int(balance == "range"), int(weighted), int(window),
+        p, block, nblocks, int(balance == "range"), int(weighted), int(window),
         cuda_stream_handle(),
     )
     check_launch("ebg_commit", err)
     LAUNCHES["ebg_commit"] += 1
+    return memb_to_keep_bits(memb, p, out=keep_out)
 
 
 def ebg_commit_block(
@@ -184,10 +272,10 @@ def ebg_commit_block(
         )
     if dev.type != "cuda":
         raise ValueError(f"ebg_commit_block runs on CPU or CUDA tensors, got {dev}")
-    kb, e_c, v_c = keep_bits.clone(), e_count.clone(), v_count.clone()
+    e_c, v_c = e_count.clone(), v_count.clone()
     parts = torch.empty((B,), dtype=torch.int32, device=dev)
-    _launch_cuda(kb, e_c, v_c, u, v, valid, coef, wu, wv, parts,
-                 p=p, vw=vw, block=B, nblocks=1, balance=balance, window=window)
+    kb = _launch_cuda(keep_bits, e_c, v_c, u, v, valid, coef, wu, wv, parts, p=p, vw=vw,
+                      block=B, nblocks=1, balance=balance, window=window, keep_out=None)
     return kb, e_c, v_c, parts
 
 
@@ -221,6 +309,7 @@ def ebg_commit_stream(
         return parts
     if dev.type != "cuda":
         raise ValueError(f"ebg_commit_stream runs on CPU or CUDA tensors, got {dev}")
-    _launch_cuda(keep_bits, e_count, v_count, u, v, valid, coef, wu, wv, parts,
-                 p=p, vw=vw, block=block, nblocks=n // block, balance=balance, window=window)
+    _launch_cuda(keep_bits, e_count, v_count, u, v, valid, coef, wu, wv, parts, p=p, vw=vw,
+                 block=block, nblocks=n // block, balance=balance, window=window,
+                 keep_out=keep_bits)
     return parts

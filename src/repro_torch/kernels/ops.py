@@ -131,13 +131,5 @@ def ebg_commit_block(
     )
 
 
-def pack_keep_bits(keep_bool: torch.Tensor) -> torch.Tensor:
-    """[p, V] bool -> [p, ceil(V/32)] packed bitset in int32 words."""
-    p, V = keep_bool.shape
-    pad = (-V) % 32
-    kb = torch.nn.functional.pad(keep_bool.to(torch.int64), (0, pad))
-    words = kb.reshape(p, -1, 32)
-    shifts = torch.arange(32, dtype=torch.int64, device=keep_bool.device)
-    packed = (words << shifts).sum(dim=-1)
-    packed = torch.where(packed >= 1 << 31, packed - (1 << 32), packed)
-    return packed.to(torch.int32)
+# [p, V] bool -> [p, ceil(V/32)] packed bitset in int32 words.
+pack_keep_bits = _ebg.pack_keep_bits

@@ -1,15 +1,16 @@
 """The port's kernels on the card: `bsp_superstep`'s sum, `segment_reduce`,
-`ebg_membership` and `decode_attention` against their plain PyTorch
-versions, and `segment_reduce`'s id guard (marked `cuda`; they skip
-without a card). This file imports neither jax nor the reference
-package, so it runs on a machine that has only PyTorch:
+`ebg_membership`, `decode_attention`, `ebg_commit` and its two layout
+transposes against their plain PyTorch versions, and `segment_reduce`'s id
+guard (marked `cuda`; they skip without a card). This file imports neither
+jax nor the reference package, so it runs on a machine that has only
+PyTorch:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda_kernels.py
 
-Exact: segment min and max, membership. Tolerance: segment and superstep
-sums rtol 1e-5 / atol 1e-6 (both add in f64, atomics in another order); attention 2e-5 in f32 and, in
-bf16, one rounding of the output (rtol 2^-7, atol 1e-5), which a 1 % error
-fails.
+Exact: segment min and max, membership, the commit and the transposes.
+Tolerance: segment and superstep sums rtol 1e-5 / atol 1e-6 (both add in
+f64, atomics in another order); attention 2e-5 in f32 and, in bf16, one
+rounding of the output (rtol 2^-7, atol 1e-5), which a 1 % error fails.
 """
 import numpy as np
 import pytest
@@ -17,6 +18,7 @@ import torch
 
 from repro_torch.kernels import bsp_superstep as pt_bsp
 from repro_torch.kernels import decode_attn as pt_attn
+from repro_torch.kernels import ebg_commit as pt_ebg
 from repro_torch.kernels import ebg_score as pt_memb
 from repro_torch.kernels import ops as pt_ops
 from repro_torch.kernels import segment_reduce as pt_seg
@@ -184,3 +186,120 @@ def test_cuda_decode_attention_matches_plain(cuda_device, dtype, softcap):
         got, want = got.cpu().float(), want.float()
         torch.testing.assert_close(got, want, rtol=tol[0], atol=tol[1])
         assert not torch.allclose(got * 1.01, want, rtol=tol[0], atol=tol[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [32, 64, 128, 256])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("softcap", [0.0, 30.0])
+def test_cuda_decode_attention_splits(cuda_device, D, dtype, softcap):
+    """The split-S kernel over cache lengths of one key, a ragged tile, one
+    whole tile and a length that the split count does not divide (whose
+    last split is one key), at batch 1 and 3 and 1 to 8 query rows a kv
+    head."""
+    tdt, tol = DTYPES[dtype]
+    gen = torch.Generator().manual_seed(D)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    Hkv = 2
+    tile = pt_attn.tile_keys(D, tdt)
+    for S in (1, 31, tile, 20_001):
+        for B in (1, 3):
+            for G in (1, 2, 4, 8):
+                nsplit = pt_attn.split_count(B, S, Hkv, G, sms, tile)
+                if S == 20_001:
+                    assert nsplit > 1 and S % nsplit
+                q, k, v = (torch.randn(s, generator=gen).to(tdt)
+                           for s in ((B, Hkv * G, D), (B, S, Hkv, D), (B, S, Hkv, D)))
+                want = pt_attn.decode_attention_plain(q, k, v, softcap=softcap).float()
+                got = pt_ops.decode_attention(q.to(cuda_device), k.to(cuda_device),
+                                              v.to(cuda_device), softcap=softcap)
+                torch.cuda.synchronize()
+                got = got.cpu().float()
+                torch.testing.assert_close(got, want, rtol=tol[0], atol=tol[1])
+                assert not torch.allclose(got * 1.01, want, rtol=tol[0], atol=tol[1])
+
+
+def _commit_stream_inputs(seed, p, V, n, weighted, hub):
+    """A bitset, counters and an n-edge stream over V vertices. `hub`: most
+    edges share one of three endpoints, so consecutive blocks overlap."""
+    rng = np.random.default_rng(seed)
+    vw = (V + 31) // 32
+    keep = rng.integers(-2**31, 2**31, (p, vw), dtype=np.int64)
+    keep &= rng.integers(-2**31, 2**31, (p, vw), dtype=np.int64)  # sparser
+    e = rng.integers(0, 40, p).astype(np.float32)
+    v = rng.integers(0, 60, p).astype(np.float32)
+    u = rng.integers(0, V, n)
+    w = rng.integers(0, V, n)
+    if hub:
+        u = np.where(rng.random(n) < 0.8, rng.integers(0, 3, n), u)
+        w = np.where(rng.random(n) < 0.5, rng.integers(0, 3, n), w)
+    valid = rng.random(n) < 0.9
+    wu = wv = None
+    if weighted:
+        wu = torch.from_numpy((rng.random(n) + 1.0).astype(np.float32))
+        wv = torch.from_numpy((rng.random(n) + 1.0).astype(np.float32))
+    coef = pt_ops.commit_coefficients(alpha=1.0, beta=0.7, inv_e=np.float32(p) / np.float32(5 * n),
+                                      inv_v=np.float32(p) / np.float32(V), eps=1.0, device="cpu")
+    state = [torch.from_numpy(keep.astype(np.int32)), torch.from_numpy(e), torch.from_numpy(v)]
+    edges = [torch.from_numpy(u.astype(np.int32)), torch.from_numpy(w.astype(np.int32)),
+             torch.from_numpy(valid)]
+    return state, edges, coef, wu, wv
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", [1, 8, 31, 32, 33, 64])
+@pytest.mark.parametrize("block", [1, 7, 64, 256])
+@pytest.mark.parametrize("window", [False, True], ids=["frozen", "window"])
+@pytest.mark.parametrize("balance", ["static", "range"])
+@pytest.mark.parametrize("weighted", [False, True], ids=["unweighted", "weighted"])
+def test_cuda_ebg_commit_matches_plain(cuda_device, p, block, window, balance, weighted):
+    """Three blocks through `ebg_commit_stream` and one through
+    `ebg_commit_block`, bitwise against the plain version, on a uniform
+    stream and on a hub-heavy one (the patch across the block boundary),
+    with V not a multiple of 32."""
+    nblocks = 3
+    for hub in (False, True):
+        state, edges, coef, wu, wv = _commit_stream_inputs(p * block + hub, p, 1007,
+                                                           nblocks * block, weighted, hub)
+        kw = dict(balance=balance, window=window)
+        dev = [t.to(cuda_device) for t in state]
+        want_state = [t.clone() for t in state]
+        want = pt_ebg.ebg_commit_stream(*want_state, *edges, coef, block=block, wu=wu, wv=wv,
+                                        **kw)
+        got = pt_ebg.ebg_commit_stream(*dev, *(t.to(cuda_device) for t in edges),
+                                       coef.to(cuda_device), block=block,
+                                       wu=None if wu is None else wu.to(cuda_device),
+                                       wv=None if wv is None else wv.to(cuda_device), **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want)
+        for g, w in zip(dev, want_state):
+            assert torch.equal(g.cpu(), w)
+        sl = slice(block, 2 * block)
+        args = [*state, *(t[sl] for t in edges), coef]
+        bkw = dict(kw, wu=None if wu is None else wu[sl], wv=None if wv is None else wv[sl])
+        want = pt_ebg.ebg_commit_block_plain(*args, **bkw)
+        got = pt_ebg.ebg_commit_block(*(t.to(cuda_device) for t in args),
+                                      **{k: (x.to(cuda_device) if torch.is_tensor(x) else x)
+                                         for k, x in bkw.items()})
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", [1, 31, 32, 33, 64])
+@pytest.mark.parametrize("V", [1, 33, 1000, (1 << 20) + 5])
+def test_cuda_memb_transposes_match_plain(cuda_device, p, V):
+    rng = np.random.default_rng(p * 7 + V)
+    keep = torch.from_numpy(
+        rng.integers(-2**31, 2**31, (p, (V + 31) // 32), dtype=np.int64).astype(np.int32))
+    memb = pt_ebg.keep_bits_to_memb(keep.to(cuda_device))
+    torch.cuda.synchronize()
+    assert torch.equal(memb.cpu(), pt_ebg.keep_bits_to_memb_plain(keep))
+    back = pt_ebg.memb_to_keep_bits(memb, p)
+    torch.cuda.synchronize()
+    assert torch.equal(back.cpu(), keep)
+    memb_rand = torch.from_numpy(
+        rng.integers(-2**31, 2**31, tuple(memb.shape), dtype=np.int64).astype(np.int32))
+    assert torch.equal(pt_ebg.memb_to_keep_bits(memb_rand.to(cuda_device), p).cpu(),
+                       pt_ebg.memb_to_keep_bits_plain(memb_rand, p))

@@ -18,13 +18,16 @@ Phases; a failed check raises and the script exits non-zero:
               (sum, to rtol 1e-5);
               segment_reduce min and max (bitwise) and sum (rtol 1e-5) on
               two workers' CC and PageRank streams and on a hub-heavy
-              stream, and its id guard (an out-of-range id must raise
-              ValueError, and the next good call succeed); ebg_membership
-              on the smoke partition's bitset (bitwise); decode_attention
-              at the parity tests' shapes, f32 and bf16, with and without
-              softcap (f32: 2e-5; bf16: one bf16 rounding, rtol 2^-7 and
-              atol 1e-5, which the kernel's output scaled by 1.01 must
-              fail). The segment reductions, membership and attention run
+              stream, and the id guards of segment_reduce and of
+              bsp_superstep's min, max and sum (an out-of-range id must
+              raise ValueError, and the next good call succeed);
+              ebg_membership on the smoke partition's bitset (bitwise);
+              decode_attention at the parity tests' shapes and at the
+              head_dims the kernel runs zero-padded (kimi_k2's 112, the
+              reduced configs' 16), f32 and bf16, with and without softcap
+              (f32: 2e-5; bf16: one bf16 rounding, rtol 2^-7 and atol
+              1e-5, which the kernel's output scaled by 1.01 must fail).
+              The segment reductions, membership and attention run
               through `kernels.ops`.
   3. pinned   the smoke graph and twitter_like through GraphPipeline on the
               card (p=32, ebg_chunked): every number the JAX reference gives
@@ -44,9 +47,15 @@ Phases; a failed check raises and the script exits non-zero:
               softcap 50 and with softcap 0, where SDPA computes the same
               function. These three are off the main path (the JAX
               package's too): their launch counts there are 0.
-              segment_reduce is timed with its wrapper's host read of the
-              id flag (ms) and without it (kernel_ms). ebg_commit's entry
-              carries the full stream's time a block.
+              segment_reduce and bsp_superstep are timed with their
+              wrappers' host read of the id flag (ms) and without it
+              (kernel_ms). ebg_commit's entry carries the full stream's
+              time a block, and a block of p=2048 parts and 8192 edges
+              (the workspace path: frozen and window, bitwise against the
+              plain version, on the smoke graph). bsp_superstep.min's
+              entry carries the share of the stream's edges that took part
+              in each pass (the frontier). decode_attention is also timed
+              at kimi_k2's attention widths (head_dim 112).
 
 Prints the card's name and power limit, the {"kernels": [...]} line, and last
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
@@ -86,11 +95,18 @@ SEGMENT_ENTRIES = {"min": "segment_min_plus", "max": "segment_max", "sum": "segm
 # attention widths (src/repro/configs/gemma2_27b.py) at B=8, S=32768.
 ATTN_SHAPES = ((2, 8, 4, 64, 512), (1, 4, 4, 32, 1024), (3, 12, 2, 64, 512))
 GEMMA2_27B = dict(Hq=32, Hkv=16, D=128, S=32_768)
+# Head dims outside the kernel's built widths, which it runs zero-padded:
+# kimi_k2's attention (src/repro/configs/kimi_k2.py: Hq 64, Hkv 8, head_dim
+# 112) and the reduced model configs' (src/repro/configs/__init__.py:
+# reduced_config: Hq 4, Hkv 2, head_dim 16), as (B, Hq, Hkv, D, S).
+PADDED_ATTN_SHAPES = ((2, 64, 8, 112, 4096), (2, 4, 2, 16, 1024), (3, 4, 2, 17, 777))
+KIMI_K2 = dict(Hq=64, Hkv=8, D=112, S=32_768)
 ATTN_CASES = (  # (entry name, batch, softcap)
     ("decode_attention", 8, 50.0), ("decode_attention.softcap0", 8, 0.0),
     ("decode_attention.B1", 1, 50.0), ("decode_attention.B1.softcap0", 1, 0.0),
 )
 MEMB_EDGES = 1 << 22  # the membership slice of the full-width stream
+WIDE_COMMIT = dict(parts=2048, block=8192)  # past the block-wide kernel's shared memory
 
 # The JAX reference on the CPU (compute_backend="xla", all defaults,
 # p=32, ebg_chunked): (steps, messages) per program, CC with components.
@@ -317,8 +333,9 @@ def compare_bsp_sum_hub(dev):
 
 
 def check_id_guard(dev):
-    """segment_reduce on the card refuses out-of-range ids with ValueError
-    (the kernel's guard and its flag), and a good call right after succeeds."""
+    """segment_reduce and bsp_superstep (min, max, sum) on the card refuse
+    out-of-range ids with ValueError (the kernels' guards and their flags),
+    and a good call right after succeeds."""
     from repro_torch.kernels import ops
 
     E, n = 4096, 100
@@ -341,6 +358,31 @@ def check_id_guard(dev):
         want = torch.full((n,), 1.0 if op == "min" else float(E // n), device=dev)
         want[: E % n] += 0.0 if op == "min" else 1.0
         check(torch.equal(got, want), f"segment_reduce {op}: a good call after a refused one")
+    # The superstep: a [4, E] stream of the same edges a worker.
+    p = 4
+    ls, ld, wt = (x.repeat(p, 1).contiguous() for x in (lsrc, ldst, w))
+    vals = torch.arange(p * n, device=dev, dtype=torch.float32).reshape(p, n) % 7
+    deg = torch.ones((p, n), device=dev)
+    for combine in ("min", "max", "sum"):
+        kw = dict(num_out=n, combine=combine, inner_cap=10_000,
+                  out_degree=deg if combine == "sum" else None)
+        for name, bad in (("lsrc", n), ("ldst", -1)):
+            args = dict(lsrc=ls.clone(), ldst=ld.clone())
+            args[name][2, E // 3] = bad
+            try:
+                ops.bsp_superstep(args["lsrc"], args["ldst"], wt, vals, **kw)
+            except ValueError as e:
+                check(f"{name} has ids" in str(e), f"bsp_superstep {combine}: wrong refusal {e}")
+            else:
+                raise AssertionError(f"bsp_superstep {combine} took an out-of-range {name}")
+        got, it = ops.bsp_superstep(ls, ld, wt, vals, **kw)
+        want, want_it = ops.bsp_superstep(*(x.cpu() for x in (ls, ld, wt, vals)),
+                                          **{k: (x.cpu() if torch.is_tensor(x) else x)
+                                             for k, x in kw.items()})
+        check(torch.equal(it.cpu(), want_it), f"bsp_superstep {combine}: a good call's iterations")
+        check(torch.allclose(got.cpu(), want, rtol=SUM_RTOL, atol=SUM_ATOL)
+              if combine == "sum" else torch.equal(got.cpu(), want),
+              f"bsp_superstep {combine}: a good call after a refused one")
 
 
 def pr_share(val, deg):
@@ -446,7 +488,14 @@ def phase_new_kernels(g, pipe, sym, dirn, dev):
                 q, k, v = attention_inputs(B, Hq, Hkv, D, S, dtype, dev, seed=i)
                 _, errs[f"attn/{B}x{Hq}x{Hkv}x{D}x{S}/{dtype}/cap{softcap}"] = \
                     compare_attention(q, k, v, softcap)
-    log("kernels: decode_attention == plain at the parity shapes (f32, bf16, softcap 0/30)")
+    for i, (B, Hq, Hkv, D, S) in enumerate(PADDED_ATTN_SHAPES):
+        for dtype in (torch.float32, torch.bfloat16):
+            for softcap in (0.0, 30.0):
+                q, k, v = attention_inputs(B, Hq, Hkv, D, S, dtype, dev, seed=100 + i)
+                _, errs[f"attn/{B}x{Hq}x{Hkv}x{D}x{S}/{dtype}/cap{softcap}"] = \
+                    compare_attention(q, k, v, softcap)
+    log("kernels: decode_attention == plain at the parity shapes and head_dims 112, 16, 17 "
+        "(f32, bf16, softcap 0/30)")
     return errs
 
 
@@ -494,7 +543,8 @@ def phase_kernels(dev):
         f"max |err| {errs}")
     errs.update(phase_new_kernels(g, pipe, sym, dirn, dev))
     check_id_guard(dev)
-    log("kernels: segment_reduce refuses out-of-range ids on the card, then takes good ones")
+    log("kernels: segment_reduce and bsp_superstep refuse out-of-range ids on the card, then "
+        "take good ones")
     return errs
 
 
@@ -677,6 +727,7 @@ def measure_kernels(g, pipe, runs, launches, dev):
         bound_ms=1e3 * block_bytes / HBM_BYTES_PER_S, bound_by="bytes", library_ms=None,
         shape=f"one block: p={PARTS}, B={B}, bitset {tuple(keep.shape)}",
         stream_ms=stream_ms, stream_ms_per_block=stream_ms / nblocks,
+        **measure_commit_wide(dev),
     )] + transpose_entries
     del stream, state, args, fresh, parts, keep
     segment_entries = []
@@ -688,15 +739,26 @@ def measure_kernels(g, pipe, runs, launches, dev):
         combine = "sum" if deg is not None else "min"
         kw = dict(num_out=n, combine=combine, inner_cap=10_000, out_degree=deg)
         ms = cuda_ms(lambda: bsp.bsp_superstep(lsrc, ldst, w, val, **kw), reps=3)
+        # The same launches without the wrapper's read of the id flag.
+        flag = torch.zeros((1,), dtype=torch.int32, device=dev)
+        kernel_ms = cuda_ms(lambda: bsp.launch_flagged(lsrc, ldst, w, val, err=flag, **kw), reps=3)
         plain_ms = cuda_ms(lambda: bsp.bsp_superstep_plain(lsrc, ldst, w, val, **kw), reps=1)
         p, E = lsrc.shape
         io_bytes = nbytes(lsrc, ldst, w, val, deg) + nbytes(got[0], got[1])
         idx = ldst.long()
+        extra = {}
         if combine == "min":
             # Passes the data needs: each worker runs its changing passes and
             # one more that finds nothing to change.
             passes = int((got[1] + 1).clamp(max=10_000).sum())
             ops = 2.0 * passes * E
+            # The frontier: edges that took part in each lock-step pass.
+            taken = torch.zeros((10_000,), dtype=torch.int64, device=dev)
+            bsp.launch_flagged(lsrc, ldst, w, val, err=flag, taken=taken, **kw)
+            rounds = int(got[1].max()) + 1
+            taken = taken[:rounds].tolist()
+            extra = dict(pass_edges=taken, active_edge_share=[x / (p * E) for x in taken],
+                         edges_taken_share=sum(taken) / (passes * E))
             data = torch.where(w < 3.0e38, torch.gather(val, 1, lsrc.long()) + w, 3.0e38)
             scratch = val.clone()
             library_ms = cuda_ms(lambda: scratch.scatter_reduce_(1, idx, data, "amin"), reps=5)
@@ -718,12 +780,14 @@ def measure_kernels(g, pipe, runs, launches, dev):
             launches=launches[f"bsp_superstep.{combine}"], max_abs_err=err, ms=ms,
             plain_ms=plain_ms, bound_ms=1e3 * bound,
             bound_by="bytes" if io_bytes / HBM_BYTES_PER_S >= ops / F32_FLOPS else "operations",
-            library_ms=library_ms, library=library,
+            library_ms=library_ms, library=library, kernel_ms=kernel_ms,
             shape=f"{prog} first superstep: stream [{p}, {E}], values [{p}, {n}]",
             # The stream's bytes once per pass each worker ran: the bound of a
             # kernel that reads its edges from device memory on every pass.
             worker_passes=passes, stream_pass_bound_ms=1e3 * passes * 12.0 * E / HBM_BYTES_PER_S,
+            **extra,
         ))
+        check(int(flag) == 0, f"bsp_superstep {prog}: the id guard fired on the main path's stream")
         del data, scratch, idx
         segment_entries.append(measure_segment(prog, lsrc[0], ldst[0], w[0],
                                                val[0] if deg is None else pr_share(val, deg)[0],
@@ -733,6 +797,8 @@ def measure_kernels(g, pipe, runs, launches, dev):
     entries += segment_entries
     entries.append(memb_entry)
     entries += [measure_attention(dev, launches, *case) for case in ATTN_CASES]
+    entries.append(measure_attention(dev, launches, "decode_attention.kimi_k2.softcap0", 8, 0.0,
+                                     KIMI_K2, "kimi_k2"))
     for e in entries:
         e["ms_over_bound"] = e["ms"] / e["bound_ms"]
         log(f"kernel {e['name']}: {e['ms']:.4f} ms (kernel alone {e.get('kernel_ms')}; plain "
@@ -779,6 +845,38 @@ def measure_segment(prog, lsrc, ldst, w, val, n, launches):
         library_ms=library_ms, library=library,
         shape=f"worker 0 of the {prog} stream: {E} edges, {val.shape[0]} values, num_out {n}",
     )
+
+
+def measure_commit_wide(dev):
+    """ebg_commit past the block-wide kernel's shared memory: p=2048 parts
+    and blocks of 8192 edges of the smoke graph's ebv stream (the workspace
+    path). Two blocks through the stream entry, then one, frozen and then
+    window, bitwise against the plain version; the frozen block timed."""
+    from repro_torch.graph.generate import rmat
+    from repro_torch.kernels import ebg_commit as ebg
+
+    parts, block = WIDE_COMMIT["parts"], WIDE_COMMIT["block"]
+    g = rmat(**SMOKE)
+    out = {}
+    for window in (False, True):
+        t = time.perf_counter()
+        st, start = commit_blocks(g, "ebv", window, dev, first=2, count=1, block=block,
+                                  parts=parts)
+        sync()
+        compare_s = time.perf_counter() - t
+        if not window:
+            sl = slice(2 * block, 3 * block)
+            args = (*start, st.u[sl], st.v[sl], st.valid[sl], st.coef)
+            out["wide_block_ms"] = cuda_ms(lambda: ebg.ebg_commit_block(*args), reps=3)
+            out["wide_plain_ms"] = cuda_ms(lambda: ebg.ebg_commit_block_plain(*args), reps=1,
+                                           warmup=0)
+        out[f"wide_check_s_{'window' if window else 'frozen'}"] = compare_s
+    words = -(-g.num_vertices // 32)
+    out["wide_shape"] = (f"one block: p={parts}, B={block}, bitset {(parts, words)}, "
+                         f"the smoke graph's ebv stream from block 2")
+    log(f"full: ebg_commit at p={parts}, block {block} == plain (frozen, window); "
+        f"{out['wide_block_ms']:.2f} ms a block")
+    return out
 
 
 def measure_transposes(keep, launches):
@@ -831,12 +929,12 @@ def measure_membership(keep, u, v, launches):
     )
 
 
-def measure_attention(dev, launches, name, B, softcap):
-    """decode_attention at gemma2_27b's attention widths, bf16, batch B.
-    At softcap 0, SDPA computes the same function and is timed beside it."""
+def measure_attention(dev, launches, name, B, softcap, c=GEMMA2_27B, config="gemma2_27b"):
+    """decode_attention at a config's attention widths (gemma2_27b's by
+    default), bf16, batch B. At softcap 0, SDPA computes the same function
+    and is timed beside it."""
     from repro_torch.kernels import decode_attn, ops
 
-    c = GEMMA2_27B
     Hq, Hkv, D, S = c["Hq"], c["Hkv"], c["D"], c["S"]
     q, k, v = attention_inputs(B, Hq, Hkv, D, S, torch.bfloat16, dev, seed=27)
     got, reading = compare_attention(q, k, v, softcap)
@@ -868,7 +966,7 @@ def measure_attention(dev, launches, name, B, softcap):
         library_ms=library_ms, library=library,
         limit=f"rtol {ATTN_TOL[torch.bfloat16][0]}, atol {ATTN_TOL[torch.bfloat16][1]}",
         over_limit=reading["over_limit"], control_over_limit=reading["control_over_limit"],
-        shape=f"gemma2_27b attention: B={B}, Hq={Hq}, Hkv={Hkv}, D={D}, S={S}, bf16, "
+        shape=f"{config} attention: B={B}, Hq={Hq}, Hkv={Hkv}, D={D}, S={S}, bf16, "
               f"softcap {softcap}, {nsplit} splits",
     )
 

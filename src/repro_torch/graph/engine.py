@@ -37,6 +37,7 @@ import torch
 from repro_torch.core.metrics import max_mean_ratio
 from repro_torch.graph.build import SubgraphSet, check_addressing
 from repro_torch.kernels import ops
+from repro_torch.kernels.bsp_superstep import check_flag
 
 INF_F32 = 3.0e38  # the f32 "unreached" value (the kernels' min identity)
 INF_I32 = 2**31 - 1  # the int32 "unreached" value
@@ -328,7 +329,9 @@ class _RunPlan:
     """The run-invariant inputs of a superstep, made once per run: the local
     stage's edge stream (padded to `block_e` at the dump slot) and, for
     sweeps, the out-degree with the dump slot's 1 appended; and the exchange
-    tables as the int64 indices that gather/scatter take."""
+    tables as the int64 indices that gather/scatter take; and the device
+    flag that the run's superstep launches OR their id guard's bits into,
+    read with the syncs the run makes anyway (`run_bsp`)."""
 
     lsrc: torch.Tensor
     ldst: torch.Tensor
@@ -339,6 +342,7 @@ class _RunPlan:
     send_idx: torch.Tensor  # [p, p*max_msg] int64
     recv_idx: torch.Tensor  # [p, p*max_msg] int64
     bcast_idx: torch.Tensor  # [p, p*max_msg] int64: send_idx, dump slot where unmasked
+    err: torch.Tensor  # [1] int32, zeroed once a run
 
 
 def _run_plan(prog: VertexProgram, sub: SubgraphSet, block_e: int) -> _RunPlan:
@@ -361,16 +365,18 @@ def _run_plan(prog: VertexProgram, sub: SubgraphSet, block_e: int) -> _RunPlan:
         send_idx=sub.send_idx.reshape(p, -1).long(),
         recv_idx=sub.recv_idx.reshape(p, -1).long(),
         bcast_idx=torch.where(sub.msg_mask, sub.send_idx, sub.max_v).reshape(p, -1).long(),
+        err=torch.zeros((1,), dtype=torch.int32, device=lsrc.device),
     )
 
 
 def _local_fixpoint(plan: _RunPlan, val: torch.Tensor, inner_cap: int):
     """Batched local fixpoint on the f32 exec values [p, max_v+1] (last slot
     = dump): every relaxation pass and the per-worker convergence flag in
-    one kernel launch. Returns (values, per-worker inner iterations)."""
+    one kernel launch (its ids' flag left in plan.err). Returns (values,
+    per-worker inner iterations)."""
     return ops.bsp_superstep(
         plan.lsrc, plan.ldst, plan.weight, val, num_out=plan.num_out, combine="min",
-        inner_cap=inner_cap, block_e=plan.block_e,
+        inner_cap=inner_cap, block_e=plan.block_e, err=plan.err,
     )
 
 
@@ -379,7 +385,7 @@ def _local_sweep(plan: _RunPlan, val: torch.Tensor) -> torch.Tensor:
     each vertex pushes val/outdeg along its out-edges, summed at dst."""
     new, _ = ops.bsp_superstep(
         plan.lsrc, plan.ldst, plan.weight, val, num_out=plan.num_out, combine="sum",
-        out_degree=plan.out_degree, block_e=plan.block_e,
+        out_degree=plan.out_degree, block_e=plan.block_e, err=plan.err,
     )
     return new
 
@@ -655,6 +661,9 @@ def run_bsp(
 
     The loop keeps the value carry and the per-step stats in device buffers
     and syncs with the host once per superstep, for the convergence flag.
+    The kernels' id flag comes to the host with the syncs the run makes
+    anyway: with no-change convergence in one transfer with that flag, and
+    at the end with the stats; an id outside [0, num_out) raises ValueError.
     Returns (values [p, max_v+1] in the program's dtype, BSPStats); the
     values and every stat match the reference's fused and host drivers.
     """
@@ -691,9 +700,15 @@ def run_bsp(
         steps += 1
         if exec_prog.convergence == "tol":
             converged = bool(tol) and bool(delta < tol)
+        elif do_ex:
+            # Converged only when an exchange round produced no change; the
+            # id flag comes in the same transfer.
+            changed, bad = torch.stack([torch.any(v2 != val).to(torch.int32),
+                                        plan.err[0]]).tolist()
+            check_flag(bad, plan.lsrc, plan.ldst, plan.num_out)
+            converged = not changed
         else:
-            # Converged only when an exchange round produced no change.
-            converged = do_ex and not bool(torch.any(v2 != val))
+            converged = False
         if do_ex:
             last_ex = v2
         val = v2
@@ -705,6 +720,7 @@ def run_bsp(
     if codec is not None:
         val = codec.decode(val)
     edges = sub.edge_mask.sum(dim=1)
-    msgs_sw, iters_sw, edges = (t.cpu().numpy().astype(np.int64)
-                                for t in (msgs_buf[:steps], iters_buf[:steps], edges))
+    msgs_sw, iters_sw, edges, bad = (t.cpu().numpy().astype(np.int64) for t in (
+        msgs_buf[:steps], iters_buf[:steps], edges, plan.err))
+    check_flag(int(bad[0]), plan.lsrc, plan.ldst, plan.num_out)
     return (-val if negate else val), _assemble_stats(steps, msgs_sw, iters_sw, edges)

@@ -10,12 +10,24 @@ streams lsrc/ldst (int32) and weight (f32), and values val [p, num_out]
       `inner_cap`; each pass gathers from the values at its start and
       `iters` counts, per worker, the passes that changed something. Pads
       carry weight INF (3e38) and are masked by a select. Streams may
-      concatenate direction halves, each dst-sorted.
+      concatenate direction halves, each dst-sorted. The kernel's values
+      and iters equal the plain version's bit for bit, except where -0 and
+      +0 candidates tie below a positive value: the kernel keeps -0, the
+      plain version the first in edge order (equal as floats). A -0
+      candidate needs a -0 weight, which no program's stream holds.
   combine="sum": one push-sum sweep of `val/out_degree` (`out_degree`
       [p, num_out] f32); pads carry weight 0. The f32 products are added
       in float64 and each sum rounded to f32 once (the reference adds in
       f32). Each worker's stream must be dst-sorted, as the reference
       requires: the kernel stores each destination's sum once.
+
+Ids must lie in [0, num_out); `bsp_superstep` raises the ValueError of
+`dispatch.check_ids` for one that does not. On the CPU the ids are checked
+before the plain version runs; on the card both kernels guard them (an edge
+with a bad id reads and commits nothing) and OR error bits into a 4-byte
+device flag, which `bsp_superstep` reads once a call. `launch_flagged`
+leaves the flag to its caller: the engine gathers a run's bits in one flag
+and reads it with the host syncs it makes anyway.
 
 Dispatch: a CPU tensor runs the plain version; a CUDA tensor launches the
 kernel, and anything else raises. The two combines are counted apart in
@@ -32,6 +44,7 @@ import torch
 from repro_torch.kernels.dispatch import (
     LAUNCHES,
     c_function,
+    check_ids,
     check_launch,
     check_tensor,
     cuda_stream_handle,
@@ -39,7 +52,6 @@ from repro_torch.kernels.dispatch import (
 
 INF = 3.0e38  # the min identity pads carry (f32-representable)
 COMBINES = ("min", "sum")
-SYNC_BYTES_PER_WORKER = 16  # sizeof(WorkerSync) in csrc/bsp_superstep.cu
 
 
 def bsp_superstep_plain(lsrc, ldst, weight, val, num_out: int, *, combine: str = "min",
@@ -76,9 +88,7 @@ def bsp_superstep_plain(lsrc, ldst, weight, val, num_out: int, *, combine: str =
     return v, iters
 
 
-def bsp_superstep(lsrc, ldst, weight, val, *, num_out: int, combine: str = "min",
-                  inner_cap: int = 1, out_degree=None):
-    """One superstep's local stage; see the module docstring."""
+def _check_arguments(lsrc, ldst, weight, val, num_out, combine, out_degree):
     if combine not in COMBINES:
         raise ValueError(f"combine must be one of {COMBINES}, got {combine!r}")
     if (combine == "sum") != (out_degree is not None):
@@ -93,30 +103,74 @@ def bsp_superstep(lsrc, ldst, weight, val, *, num_out: int, combine: str = "min"
     check_tensor("val", val, torch.float32, (p, num_out), dev)
     if out_degree is not None:
         check_tensor("out_degree", out_degree, torch.float32, (p, num_out), dev)
-    if dev.type == "cpu":
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"bsp_superstep runs on CPU or CUDA tensors, got {dev}")
+    if dev.type == "cuda" and E == 0:
+        raise ValueError("the CUDA superstep kernel needs a non-empty edge stream")
+
+
+def check_flag(err: torch.Tensor, lsrc, ldst, num_out: int) -> None:
+    """Raise the ValueError of `dispatch.check_ids` if the kernels' error
+    flag `err` (a host or device int32 scalar tensor, or its value) holds
+    any bit; this reads it."""
+    bits = int(err)
+    if bits:
+        check_ids(("lsrc", lsrc, num_out), ("ldst", ldst, num_out))  # raises, with the bounds
+        raise RuntimeError(f"bsp_superstep flagged out-of-range ids (bits {bits})")
+
+
+def launch_flagged(lsrc, ldst, weight, val, *, num_out: int, combine: str = "min",
+                   inner_cap: int = 1, out_degree=None, err=None, taken=None):
+    """The superstep without the read of the error flag: on the card the
+    kernels OR the id guard's bits into `err` (an int32 [1] device tensor
+    the caller zeroed, and reads when it syncs: `check_flag`); an edge with
+    a bad id has read and committed nothing. On the CPU the ids are checked
+    here, before the plain version. `taken` (min on the card only): a
+    zeroed int64 [k] device tensor, to which pass i < k of the kernel adds
+    the edges that took part in it (the others' sources kept their values).
+    Returns (new_val, iters)."""
+    _check_arguments(lsrc, ldst, weight, val, num_out, combine, out_degree)
+    return _run(lsrc, ldst, weight, val, num_out, combine, inner_cap, out_degree, err, taken)
+
+
+def _run(lsrc, ldst, weight, val, num_out, combine, inner_cap, out_degree, err, taken=None):
+    if lsrc.device.type == "cpu":
+        check_ids(("lsrc", lsrc, num_out), ("ldst", ldst, num_out))
         return bsp_superstep_plain(lsrc, ldst, weight, val, num_out, combine=combine,
                                    inner_cap=inner_cap, out_degree=out_degree)
-    if dev.type != "cuda":
-        raise ValueError(f"bsp_superstep runs on CPU or CUDA tensors, got {dev}")
-    if E == 0:
-        raise ValueError("the CUDA superstep kernel needs a non-empty edge stream")
+    p, E = lsrc.shape
+    dev = lsrc.device
+    check_tensor("err", err, torch.int32, (1,), dev)
+    if taken is not None:
+        check_tensor("taken", taken, torch.int64, (taken.numel(),), dev)
     out = torch.empty((p, num_out), dtype=torch.float32, device=dev)
     iters = torch.empty((p,), dtype=torch.int32, device=dev)
     scratch_bytes = c_function("bsp_superstep", "bsp_superstep_scratch_bytes",
                                [ctypes.c_int] * 4, restype=ctypes.c_longlong)
     nbytes = scratch_bytes(p, E, num_out, COMBINES.index(combine))
     scratch = torch.empty(((nbytes + 7) // 8,), dtype=torch.float64, device=dev)
-    sync = (torch.zeros((p * SYNC_BYTES_PER_WORKER // 4,), dtype=torch.int32, device=dev)
-            if combine == "min" else None)
     fn = c_function("bsp_superstep", "bsp_superstep_launch",
-                    [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
-    err = fn(
+                    [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    code = fn(
         lsrc.data_ptr(), ldst.data_ptr(), weight.data_ptr(), val.data_ptr(),
         None if out_degree is None else out_degree.data_ptr(),
-        out.data_ptr(), scratch.data_ptr(), iters.data_ptr(),
-        None if sync is None else sync.data_ptr(),
+        out.data_ptr(), scratch.data_ptr(), iters.data_ptr(), err.data_ptr(),
+        None if taken is None else taken.data_ptr(), 0 if taken is None else taken.numel(),
         p, E, num_out, COMBINES.index(combine), int(inner_cap), cuda_stream_handle(),
     )
-    check_launch("bsp_superstep", err)
+    check_launch("bsp_superstep", code)
     LAUNCHES[f"bsp_superstep.{combine}"] += 1
     return out, iters
+
+
+def bsp_superstep(lsrc, ldst, weight, val, *, num_out: int, combine: str = "min",
+                  inner_cap: int = 1, out_degree=None):
+    """One superstep's local stage; see the module docstring."""
+    _check_arguments(lsrc, ldst, weight, val, num_out, combine, out_degree)
+    err = None
+    if lsrc.device.type == "cuda":
+        err = torch.zeros((1,), dtype=torch.int32, device=lsrc.device)
+    out = _run(lsrc, ldst, weight, val, num_out, combine, inner_cap, out_degree, err)
+    if err is not None:
+        check_flag(err, lsrc, ldst, num_out)
+    return out

@@ -3,7 +3,8 @@
 // Replaces the TPU kernel `_decode_attn_kernel` / `decode_attention_pallas`
 // in src/repro/kernels/decode_attn.py (oracle `decode_attention_ref` in
 // src/repro/kernels/ref.py). Inputs: q [B, Hq, D], k and v [B, S, Hkv, D],
-// all f32 or all bf16, Hq = Hkv * G; output out [B, Hq, D] in q's type.
+// all f32 or all bf16, Hq = Hkv * G, 1 <= D <= 256; output out [B, Hq, D]
+// in q's type.
 // Query head h*G + g attends over kv head h:
 //   s_j = q . k_j * scale   (scale = 1/sqrt(D)),
 //   s_j = softcap * tanh(s_j / softcap)   when softcap != 0,
@@ -40,6 +41,13 @@
 //     registers; the KP partial accumulators are added once, at the end.
 //   * Products are written as __fmaf_rn (the build's -fmad=false forbids
 //     only the compiler's own contraction).
+//   * Any head_dim: the kernel is built for DP in {32, 64, 128, 256}; a
+//     head_dim D < DP runs on the next one up. Its rows sit in the padded
+//     tile with zero columns D..DP (in q and k they add nothing to a dot
+//     product; those of P·V are not stored), and scale is 1/sqrt(D) of
+//     the true D. Rows whose D·sizeof(T) is not a multiple of 16 (or k, v
+//     off a 16-byte boundary) cannot take a bulk copy: they are loaded by
+//     element into the tile.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -99,6 +107,11 @@ __device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
 __device__ __forceinline__ void mbar_expect(uint64_t* bar, unsigned bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
                ::"r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+// One arrival with no bytes expected (a tile loaded by element).
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
 }
 
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
@@ -171,11 +184,14 @@ __device__ __forceinline__ float warp_max(float x) {
 
 // Partial state of split z of CTA row x: acc at ws[((x·nsplit + z)·GC + g)·D + d],
 // then (m, l) at ml[((x·nsplit + z)·GC + g)·2 + {0, 1}], ml = ws + rows·nsplit·GC·D.
+// D is the built (padded) width, dt <= D the true head_dim; bulk: rows
+// load by one bulk copy each, else by element.
 template <typename T, int D, int GC>
 __global__ void __launch_bounds__(Shape<T, D>::THREADS)
     decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, T* __restrict__ out, float* __restrict__ ws,
-                        int S, int Hkv, int G, int chunk, float scale, float softcap) {
+                        int S, int Hkv, int G, int chunk, float scale, float softcap, int dt,
+                        int bulk) {
   using Sh = Shape<T, D>;
   using Sm = Smem<T, D, GC>;
   constexpr int CE = Sh::CE, NCH = Sh::NCH, ROWB = Sh::ROWB, TILEB = Sh::TILEB;
@@ -204,13 +220,21 @@ __global__ void __launch_bounds__(Shape<T, D>::THREADS)
   const int ntiles = kend > k0 ? (kend - k0 + kTK - 1) / kTK : 0;
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
 
-  const size_t rs = (size_t)Hkv * D;  // elements from key s to key s+1
-  const T* kb = k + ((size_t)b * S * Hkv + h) * D;
-  const T* vb = v + ((size_t)b * S * Hkv + h) * D;
+  const size_t rs = (size_t)Hkv * dt;  // elements from key s to key s+1
+  const T* kb = k + ((size_t)b * S * Hkv + h) * dt;
+  const T* vb = v + ((size_t)b * S * Hkv + h) * dt;
   if (t == 0) {
 #pragma unroll
     for (int i = 0; i < NSTAGE; ++i) mbar_init(bar + i, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // The pad columns dt..D of every row of the ring are zero for good: the
+  // loads write columns 0..dt only.
+  if (dt < D) {
+    for (int i = t; i < NSTAGE * 2 * kTK * (D - dt); i += kThreads) {
+      const int row = i / (D - dt), c = dt + i % (D - dt);
+      reinterpret_cast<T*>(ring + row * ROWB)[c] = from_f32<T>(0.0f);
+    }
   }
   __syncthreads();
   // Tile i into slot i % NSTAGE: one bulk copy a K or V row (threads < 2·kTK),
@@ -220,12 +244,22 @@ __global__ void __launch_bounds__(Shape<T, D>::THREADS)
     unsigned char* st = ring + (i % NSTAGE) * STAGEB;
     const int key0 = k0 + i * kTK;
     const int nv = min(kTK, kend - key0);
-    if (t == 0) mbar_expect(bar + i % NSTAGE, 2u * nv * D * (unsigned)sizeof(T));
+    if (!bulk) {
+      for (int e = t; e < 2 * nv * dt; e += kThreads) {
+        const int kv = e / (nv * dt), r = e / dt % nv, c = e % dt;
+        reinterpret_cast<T*>(st + kv * TILEB + r * ROWB)[c] =
+            (kv ? vb : kb)[(size_t)(key0 + r) * rs + c];
+      }
+      if (t == 0) mbar_arrive(bar + i % NSTAGE);  // the barriers before the tile's use order these
+    } else if (t == 0) {
+      mbar_expect(bar + i % NSTAGE, 2u * nv * dt * (unsigned)sizeof(T));
+    }
     if (t < 2 * kTK) {
       const int kv = t / kTK, r = t % kTK;
       if (r < nv) {
-        bulk_copy(st + kv * TILEB + r * ROWB, (kv ? vb : kb) + (size_t)(key0 + r) * rs,
-                  D * sizeof(T), bar + i % NSTAGE);
+        if (bulk)
+          bulk_copy(st + kv * TILEB + r * ROWB, (kv ? vb : kb) + (size_t)(key0 + r) * rs,
+                    dt * sizeof(T), bar + i % NSTAGE);
       } else if (kv) {
         uint4* row = reinterpret_cast<uint4*>(st + TILEB + r * ROWB);
 #pragma unroll
@@ -236,8 +270,9 @@ __global__ void __launch_bounds__(Shape<T, D>::THREADS)
 #pragma unroll
   for (int i = 0; i < NSTAGE - 1; ++i) load_tile(i);
   // The query rows, once the first tiles are on their way.
-  const T* qb = q + ((size_t)b * Hkv * G + (size_t)h * G + g0) * D;
-  for (int i = t; i < GC * D; i += kThreads) q_s[i] = i / D < ng ? to_f32(qb[i]) : 0.0f;
+  const T* qb = q + ((size_t)b * Hkv * G + (size_t)h * G + g0) * dt;
+  for (int i = t; i < GC * D; i += kThreads)
+    q_s[i] = i / D < ng && i % D < dt ? to_f32(qb[i / D * dt + i % D]) : 0.0f;
 
   float m_r[GW], l_r[GW];
 #pragma unroll
@@ -370,13 +405,13 @@ __global__ void __launch_bounds__(Shape<T, D>::THREADS)
   }
   __syncthreads();
   const size_t row0 = ((size_t)x * nsplit + split) * GC;
-  for (int idx = t; idx < ng * D; idx += kThreads) {
-    const int g = idx / D, d = idx % D;
+  for (int idx = t; idx < ng * dt; idx += kThreads) {
+    const int g = idx / dt, d = idx % dt;
     float num = red[g * D + d];
 #pragma unroll
     for (int p2 = 1; p2 < KP; ++p2) num = __fadd_rn(num, red[(p2 * GC + g) * D + d]);
     if (nsplit == 1) {
-      out[((size_t)b * Hkv * G + (size_t)h * G + g0 + g) * D + d] =
+      out[((size_t)b * Hkv * G + (size_t)h * G + g0 + g) * dt + d] =
           from_f32<T>(__fdiv_rn(num, ml_s[GC + g]));
     } else {
       ws[(row0 + g) * D + d] = num;
@@ -390,11 +425,12 @@ __global__ void __launch_bounds__(Shape<T, D>::THREADS)
 }
 
 // One CTA a (batch, kv head, group): the nsplit partial states of each of
-// its query rows merged with the log-sum-exp rule, divided and cast.
+// its query rows merged with the log-sum-exp rule, divided and cast. D is
+// the partial states' (padded) width, dt <= D the output's.
 template <typename T>
 __global__ void __launch_bounds__(kMergeThreads)
     decode_merge_kernel(const float* __restrict__ ws, T* __restrict__ out, int Hkv, int G,
-                        int GC, int D, int nsplit) {
+                        int GC, int D, int dt, int nsplit) {
   extern __shared__ float f_s[];  // [nsplit][GC] exp(m_z - M), then L [GC]
   float* L_s = f_s + nsplit * GC;
   const int ngroups = (G + GC - 1) / GC;
@@ -420,12 +456,12 @@ __global__ void __launch_bounds__(kMergeThreads)
     if (lane == 0) L_s[g] = L;
   }
   __syncthreads();
-  for (int idx = t; idx < ng * D; idx += kMergeThreads) {
-    const int g = idx / D, d = idx % D;
+  for (int idx = t; idx < ng * dt; idx += kMergeThreads) {
+    const int g = idx / dt, d = idx % dt;
     float num = 0.0f;
     for (int z = 0; z < nsplit; ++z)
       num = __fmaf_rn(ws[(row0 + z * GC + g) * D + d], f_s[z * GC + g], num);
-    out[((size_t)b * Hkv * G + (size_t)h * G + g0 + g) * D + d] =
+    out[((size_t)b * Hkv * G + (size_t)h * G + g0 + g) * dt + d] =
         from_f32<T>(__fdiv_rn(num, L_s[g]));
   }
 }
@@ -437,21 +473,23 @@ int group_rows(int G) { return G <= 1 ? 1 : G <= 2 ? 2 : G <= 4 ? 4 : 8; }
 template <typename T, int D, int GC>
 cudaError_t launch_split(const void* q, const void* k, const void* v, void* out, float* ws,
                          int rows, int S, int Hkv, int G, int chunk, int nsplit, float scale,
-                         float softcap, cudaStream_t stream) {
+                         float softcap, int dt, int bulk, cudaStream_t stream) {
   auto kern = decode_split_kernel<T, D, GC>;
   constexpr int bytes = Smem<T, D, GC>::BYTES;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
   kern<<<dim3(rows, nsplit), Shape<T, D>::THREADS, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), ws, S, Hkv, G, chunk, scale, softcap);
+      static_cast<T*>(out), ws, S, Hkv, G, chunk, scale, softcap, dt, bulk);
   return cudaGetLastError();
 }
 
 template <typename T, int D>
 cudaError_t launch_d(const void* q, const void* k, const void* v, void* out, float* ws, int B,
-                     int S, int Hkv, int G, int nsplit, float scale, float softcap,
+                     int S, int Hkv, int G, int nsplit, float scale, float softcap, int dt,
                      cudaStream_t s) {
+  const int bulk = dt * (int)sizeof(T) % 16 == 0 && reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(v) % 16 == 0;
   const int GC = group_rows(G);
   const int rows = B * Hkv * ((G + GC - 1) / GC);
   // Whole tiles a split; the last split takes what is left.
@@ -462,28 +500,35 @@ cudaError_t launch_d(const void* q, const void* k, const void* v, void* out, flo
   nsplit = (tiles + per - 1) / per;
   cudaError_t err;
   switch (GC) {
-    case 1: err = launch_split<T, D, 1>(q, k, v, out, ws, rows, S, Hkv, G, chunk, nsplit, scale, softcap, s); break;
-    case 2: err = launch_split<T, D, 2>(q, k, v, out, ws, rows, S, Hkv, G, chunk, nsplit, scale, softcap, s); break;
-    case 4: err = launch_split<T, D, 4>(q, k, v, out, ws, rows, S, Hkv, G, chunk, nsplit, scale, softcap, s); break;
-    case 8: err = launch_split<T, D, 8>(q, k, v, out, ws, rows, S, Hkv, G, chunk, nsplit, scale, softcap, s); break;
+    case 1: err = launch_split<T, D, 1>(q, k, v, out, ws, rows, S, Hkv, G, chunk, nsplit, scale, softcap, dt, bulk, s); break;
+    case 2: err = launch_split<T, D, 2>(q, k, v, out, ws, rows, S, Hkv, G, chunk, nsplit, scale, softcap, dt, bulk, s); break;
+    case 4: err = launch_split<T, D, 4>(q, k, v, out, ws, rows, S, Hkv, G, chunk, nsplit, scale, softcap, dt, bulk, s); break;
+    case 8: err = launch_split<T, D, 8>(q, k, v, out, ws, rows, S, Hkv, G, chunk, nsplit, scale, softcap, dt, bulk, s); break;
     default: return cudaErrorInvalidValue;
   }
   if (err != cudaSuccess || nsplit == 1) return err;
   const size_t merge_bytes = (size_t)(nsplit + 1) * GC * sizeof(float);
   decode_merge_kernel<T><<<rows, kMergeThreads, merge_bytes, s>>>(ws, static_cast<T*>(out), Hkv,
-                                                                  G, GC, D, nsplit);
+                                                                  G, GC, D, dt, nsplit);
   return cudaGetLastError();
+}
+
+// The width a head_dim D runs at: the least built width >= D (0: none).
+int padded_dim(int D) {
+  return D < 1 ? 0 : D <= 32 ? 32 : D <= 64 ? 64 : D <= 128 ? 128 : D <= 256 ? 256 : 0;
 }
 
 template <typename T>
 cudaError_t launch_t(const void* q, const void* k, const void* v, void* out, float* ws, int B,
                      int S, int Hkv, int G, int D, int nsplit, float scale, float softcap,
                      cudaStream_t s) {
-  switch (D) {
-    case 32: return launch_d<T, 32>(q, k, v, out, ws, B, S, Hkv, G, nsplit, scale, softcap, s);
-    case 64: return launch_d<T, 64>(q, k, v, out, ws, B, S, Hkv, G, nsplit, scale, softcap, s);
-    case 128: return launch_d<T, 128>(q, k, v, out, ws, B, S, Hkv, G, nsplit, scale, softcap, s);
-    case 256: return launch_d<T, 256>(q, k, v, out, ws, B, S, Hkv, G, nsplit, scale, softcap, s);
+  switch (padded_dim(D)) {
+    case 32: return launch_d<T, 32>(q, k, v, out, ws, B, S, Hkv, G, nsplit, scale, softcap, D, s);
+    case 64: return launch_d<T, 64>(q, k, v, out, ws, B, S, Hkv, G, nsplit, scale, softcap, D, s);
+    case 128:
+      return launch_d<T, 128>(q, k, v, out, ws, B, S, Hkv, G, nsplit, scale, softcap, D, s);
+    case 256:
+      return launch_d<T, 256>(q, k, v, out, ws, B, S, Hkv, G, nsplit, scale, softcap, D, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -496,16 +541,16 @@ extern "C" {
 long long decode_attn_workspace(int B, int Hkv, int G, int D, int nsplit) {
   if (nsplit <= 1) return 0;
   const int GC = group_rows(G);
-  return (long long)B * Hkv * ((G + GC - 1) / GC) * nsplit * GC * (D + 2);
+  return (long long)B * Hkv * ((G + GC - 1) / GC) * nsplit * GC * (padded_dim(D) + 2);
 }
 
-// dtype: 0 = f32, 1 = bf16. D must be 32, 64, 128 or 256; 1 <= nsplit <=
+// dtype: 0 = f32, 1 = bf16. 1 <= D <= 256; 1 <= nsplit <=
 // 1024 (fewer are used when S has fewer tiles); `ws` holds at least
 // decode_attn_workspace(...) floats. Returns cudaGetLastError of the launches.
 int decode_attn_launch(const void* q, const void* k, const void* v, void* out, void* ws,
                        long long ws_floats, int B, int S, int Hkv, int G, int D, int dtype,
                        float scale, float softcap, int nsplit, void* stream) {
-  if (B < 1 || S < 1 || Hkv < 1 || G < 1 || nsplit < 1 || nsplit > 1024)
+  if (B < 1 || S < 1 || Hkv < 1 || G < 1 || nsplit < 1 || nsplit > 1024 || padded_dim(D) == 0)
     return (int)cudaErrorInvalidValue;
   if ((long long)B * Hkv * G > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   if (ws_floats < decode_attn_workspace(B, Hkv, G, D, nsplit)) return (int)cudaErrorInvalidValue;

@@ -48,6 +48,11 @@
 //     boundary — which gives exactly the block-start state of b+1.
 // p > 32, and a block whose double buffer does not fit in shared memory,
 // run one CTA with block-wide reductions on the same layout (no overlap).
+// Where even that kernel's per-edge staging does not fit in shared memory
+// (about 7,240 edges at p <= 32, 4,096 at p > 128) or p > 1024, its WIDE
+// build keeps the staging in a global workspace and gives each thread
+// several parts; it takes any p and any block, only to be right. A block is
+// never split: frozen mode scores the whole block against its start.
 // memb (16 MB at 2^22 vertices and p = 32) stays in global memory, where
 // L2 holds it; it is read through L2 (ld.cg) so that the commits (atomics
 // at L2) are seen by the next gather.
@@ -442,18 +447,32 @@ struct Smem {
   int* red_i;     // [2 * 32] argmin index, double-buffered by edge parity
 };
 
-template <bool RANGE, bool WEIGHTED, bool WINDOW>
+// Bytes of a block's per-edge staging (mu .. swin).
+__host__ __device__ __forceinline__ size_t stage_bytes(int p, int B) {
+  const size_t W = (size_t)(p + 31) / 32;
+  return (size_t)B * (2 * W * 4 + 6 * 4);
+}
+
+// One CTA walks the blocks in order. Thread t owns parts t, t + T, ...:
+// one at most (p <= T), its counters in registers, unless WIDE. WIDE takes
+// any p and any block: the per-edge staging lives in the global workspace
+// `ws` (stage_bytes of it) instead of shared memory, each thread scores
+// its parts in turn and folds them into its argmin (and, in range mode,
+// into its max/min of e_c) before the warp and CTA reductions, and keeps
+// their counters in e_count/v_count, which only it touches until the end.
+template <bool RANGE, bool WEIGHTED, bool WINDOW, bool WIDE>
 __global__ void __launch_bounds__(1024)
     ebg_commit_block_kernel(uint32_t* __restrict__ memb, float* __restrict__ e_count,
                             float* __restrict__ v_count, const int* __restrict__ u,
                             const int* __restrict__ v, const uint8_t* __restrict__ valid,
                             const float* __restrict__ wu, const float* __restrict__ wv,
                             const float* __restrict__ coef, int* __restrict__ parts, int p, int B,
-                            int nblocks) {
+                            int nblocks, unsigned char* __restrict__ ws) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int W = (p + 31) >> 5;
+  unsigned char* const stage = WIDE ? ws : smem_raw;
   Smem sm;
-  sm.mu = reinterpret_cast<uint32_t*>(smem_raw);
+  sm.mu = reinterpret_cast<uint32_t*>(stage);
   sm.mv = sm.mu + (size_t)B * W;
   sm.su = reinterpret_cast<int*>(sm.mv + (size_t)B * W);
   sm.sv = sm.su + B;
@@ -461,7 +480,7 @@ __global__ void __launch_bounds__(1024)
   sm.swu = reinterpret_cast<float*>(sm.sval + B);
   sm.swv = sm.swu + B;
   sm.swin = reinterpret_cast<int*>(sm.swv + B);
-  sm.red_f = reinterpret_cast<float*>(sm.swin + B);
+  sm.red_f = WIDE ? reinterpret_cast<float*>(smem_raw) : reinterpret_cast<float*>(sm.swin + B);
   sm.red_i = reinterpret_cast<int*>(sm.red_f + 4 * 32);
 
   const int t = threadIdx.x;
@@ -473,8 +492,8 @@ __global__ void __launch_bounds__(1024)
   const float kPosInf = __int_as_float(0x7f800000);
   const Coef cf = load_coef(coef);
 
-  float e_c = part_lane ? e_count[t] : 0.0f;
-  float v_c = part_lane ? v_count[t] : 0.0f;
+  float e_c = !WIDE && part_lane ? e_count[t] : 0.0f;
+  float v_c = !WIDE && part_lane ? v_count[t] : 0.0f;
 
   for (int blk = 0; blk < nblocks; ++blk) {
     const size_t base = (size_t)blk * B;
@@ -497,23 +516,25 @@ __global__ void __launch_bounds__(1024)
     __syncthreads();
 
     // ---- 2. the sequential per-edge argmin + exact counter commit.
-    const int pw = t >> 5;  // this lane's mask word
     for (int j = 0; j < B; ++j) {
+      // The gain of part i on edge j, and its miss bits.
+      auto part_gain = [&](int i, float& mu, float& mv) {
+        mu = (float)((sm.mu[j * W + (i >> 5)] >> (i & 31)) & 1u);
+        mv = (float)((sm.mv[j * W + (i >> 5)] >> (i & 31)) & 1u);
+        if (WEIGHTED) return __fadd_rn(__fmul_rn(sm.swu[j], mu), __fmul_rn(sm.swv[j], mv));
+        return __fadd_rn(mu, mv);
+      };
       float mu = 0.0f, mv = 0.0f;
-      if (part_lane) {
-        mu = (float)((sm.mu[j * W + pw] >> lane) & 1u);
-        mv = (float)((sm.mv[j * W + pw] >> lane) & 1u);
-      }
-      float gain;
-      if (WEIGHTED) {
-        gain = __fadd_rn(__fmul_rn(sm.swu[j], mu), __fmul_rn(sm.swv[j], mv));
-      } else {
-        gain = __fadd_rn(mu, mv);
-      }
+      float gain = 0.0f;
+      if (!WIDE && part_lane) gain = part_gain(t, mu, mv);
       float norm = cf.inv_e;
       if (RANGE) {
-        float mx = part_lane ? e_c : -kPosInf;
-        float mn = part_lane ? e_c : kPosInf;
+        float mx = -kPosInf, mn = kPosInf;
+        if (WIDE) {
+          for (int i = t; i < p; i += T) mx = fmaxf(mx, e_count[i]), mn = fminf(mn, e_count[i]);
+        } else if (part_lane) {
+          mx = mn = e_c;
+        }
         warp_maxmin(mx, mn);
         if (lane == 0) {
           sm.red_f[warp] = mx;
@@ -528,10 +549,18 @@ __global__ void __launch_bounds__(1024)
         }
         norm = __fdiv_rn(1.0f, __fadd_rn(cf.eps, __fsub_rn(mx, mn)));
       }
-      const float score = __fmaf_rn(__fmul_rn(cf.cv, v_c), cf.inv_v,
-                                    __fmaf_rn(__fmul_rn(cf.ce, e_c), norm, gain));
-      float s = part_lane ? score : kPosInf;
-      int win = part_lane ? t : 0x7fffffff;
+      float s = kPosInf;
+      int win = 0x7fffffff;
+      if (WIDE) {
+        for (int i = t; i < p; i += T) {
+          float a, b;
+          const float g = part_gain(i, a, b);
+          better(s, win, score_of(cf, e_count[i], v_count[i], norm, g), i);
+        }
+      } else if (part_lane) {
+        s = score_of(cf, e_c, v_c, norm, gain);
+        win = t;
+      }
       warp_argmin(s, win);
       const int par = j & 1;
       if (lane == 0) {
@@ -544,9 +573,15 @@ __global__ void __launch_bounds__(1024)
       for (int w = 1; w < nw; ++w)
         better(s, win, sm.red_f[64 + 32 * par + w], sm.red_i[32 * par + w]);
       const bool ok = sm.sval[j] != 0;
-      if (ok && t == win) {
-        e_c = __fadd_rn(e_c, 1.0f);
-        v_c = __fadd_rn(v_c, __fadd_rn(mu, mv));
+      if (ok && win % T == t) {  // the thread that owns the winner
+        if (WIDE) {
+          part_gain(win, mu, mv);
+          e_count[win] = __fadd_rn(e_count[win], 1.0f);
+          v_count[win] = __fadd_rn(v_count[win], __fadd_rn(mu, mv));
+        } else {
+          e_c = __fadd_rn(e_c, 1.0f);
+          v_c = __fadd_rn(v_c, __fadd_rn(mu, mv));
+        }
       }
       if (t == 0) sm.swin[j] = ok ? win : p;
       if (WINDOW && ok) {
@@ -576,7 +611,7 @@ __global__ void __launch_bounds__(1024)
     }
     __syncthreads();
   }
-  if (part_lane) {
+  if (!WIDE && part_lane) {
     e_count[t] = e_c;
     v_count[t] = v_c;
   }
@@ -584,12 +619,15 @@ __global__ void __launch_bounds__(1024)
 
 // ------------------------------------------------------------ launch
 
-// Bytes of dynamic shared memory of each kernel (ebg_commit.py checks the
-// block-wide kernel's, which any shape that runs fits).
-size_t block_smem(int p, int B) {
-  const size_t W = (size_t)(p + 31) / 32;
-  return (size_t)B * (2 * W * 4 + 6 * 4) + 4 * 32 * 4 + 2 * 32 * 4;
+// Bytes of dynamic shared memory of the block-wide kernel: the per-edge
+// staging (unless WIDE, where it is in the workspace) and the reductions'.
+size_t block_smem(int p, int B, bool wide) {
+  return (wide ? 0 : stage_bytes(p, B)) + 4 * 32 * 4 + 2 * 32 * 4;
 }
+
+// Whether a launch takes the WIDE block-wide kernel: more parts than a CTA
+// has threads, or a block whose staging does not fit in shared memory.
+bool wide_launch(int p, int B) { return p > 1024 || block_smem(p, B, false) > kMaxSmem; }
 
 int table_bits(int B) {  // at least 8B slots: at most 2B keys, load <= 1/4
   int bits = 6;
@@ -601,29 +639,43 @@ size_t pipe_smem(int B, bool weighted) {
   return 2 * buf_bytes(B, weighted) + ((size_t)8 << table_bits(B));
 }
 
+template <bool RANGE, bool WEIGHTED, bool WINDOW, bool WIDE>
+cudaError_t launch_block(cudaStream_t stream, uint32_t* memb, float* e, float* vc, const int* u,
+                         const int* v, const uint8_t* valid, const float* wu, const float* wv,
+                         const float* coef, int* parts, int p, int B, int nblocks,
+                         unsigned char* ws) {
+  auto kern = ebg_commit_block_kernel<RANGE, WEIGHTED, WINDOW, WIDE>;
+  const size_t smem = block_smem(p, B, WIDE);
+  const int W = (p + 31) / 32;
+  const int threads = 32 * W > 1024 ? 1024 : (32 * W > kThreads ? 32 * W : kThreads);
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kern<<<1, threads, smem, stream>>>(memb, e, vc, u, v, valid, wu, wv, coef, parts, p, B, nblocks,
+                                     ws);
+  return cudaGetLastError();
+}
+
 template <bool RANGE, bool WEIGHTED, bool WINDOW>
 cudaError_t launch(bool pipe, cudaStream_t stream, uint32_t* memb, float* e, float* vc,
                    const int* u, const int* v, const uint8_t* valid, const float* wu,
-                   const float* wv, const float* coef, int* parts, int p, int B, int nblocks) {
-  cudaError_t err;
+                   const float* wv, const float* coef, int* parts, int p, int B, int nblocks,
+                   unsigned char* ws) {
   if (pipe) {
     auto kern = ebg_commit_pipe_kernel<RANGE, WEIGHTED, WINDOW>;
     const size_t smem = pipe_smem(B, WEIGHTED);
-    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    cudaError_t err =
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
     kern<<<1, kThreads, smem, stream>>>(memb, e, vc, u, v, valid, wu, wv, coef, parts, p, B,
                                         nblocks, table_bits(B));
-  } else {
-    auto kern = ebg_commit_block_kernel<RANGE, WEIGHTED, WINDOW>;
-    const size_t smem = block_smem(p, B);
-    const int W = (p + 31) / 32;
-    const int threads = 32 * W > kThreads ? 32 * W : kThreads;
-    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    kern<<<1, threads, smem, stream>>>(memb, e, vc, u, v, valid, wu, wv, coef, parts, p, B,
-                                       nblocks);
+    return cudaGetLastError();
   }
-  return cudaGetLastError();
+  if (wide_launch(p, B))
+    return launch_block<RANGE, WEIGHTED, WINDOW, true>(stream, memb, e, vc, u, v, valid, wu, wv,
+                                                        coef, parts, p, B, nblocks, ws);
+  return launch_block<RANGE, WEIGHTED, WINDOW, false>(stream, memb, e, vc, u, v, valid, wu, wv,
+                                                       coef, parts, p, B, nblocks, ws);
 }
 
 }  // namespace
@@ -649,16 +701,25 @@ int ebg_memb_transpose(const void* src, void* dst, int p, int vw, int to_memb, v
   return (int)cudaGetLastError();
 }
 
+// Bytes of the global workspace a launch of p parts and blocks of B edges
+// needs: the WIDE kernel's per-edge staging, else 0.
+long long ebg_commit_workspace_bytes(int p, int B, int weighted) {
+  const bool pipe = p <= 32 && pipe_smem(B, weighted != 0) <= kMaxSmem;
+  return !pipe && wide_launch(p, B) ? (long long)stage_bytes(p, B) : 0;
+}
+
 // Walk `nblocks` blocks of B edges in order over memb [32·vw, ⌈p/32⌉],
 // updating memb/e_count/v_count in place and writing parts[nblocks * B].
-// valid is 1 byte per edge.
+// valid is 1 byte per edge. ws: ebg_commit_workspace_bytes(p, B, weighted)
+// bytes of device memory, 16-byte aligned (may be null when that is 0).
 int ebg_commit_launch(void* memb, void* e_count, void* v_count, const void* u, const void* v,
                       const void* valid, const void* wu, const void* wv, const void* coef,
-                      void* parts, int p, int B, int nblocks, int range, int weighted,
+                      void* parts, void* ws, int p, int B, int nblocks, int range, int weighted,
                       int window, void* stream) {
-  if (p < 1 || p > 1024 || B < 1 || nblocks < 1) return (int)cudaErrorInvalidValue;
+  if (p < 1 || B < 1 || nblocks < 1) return (int)cudaErrorInvalidValue;
   const bool pipe = p <= 32 && pipe_smem(B, weighted != 0) <= kMaxSmem;
-  if (!pipe && block_smem(p, B) > kMaxSmem) return (int)cudaErrorInvalidValue;
+  if (ws == nullptr && ebg_commit_workspace_bytes(p, B, weighted) > 0)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto* mb = static_cast<uint32_t*>(memb);
   auto* e = static_cast<float*>(e_count);
@@ -670,10 +731,11 @@ int ebg_commit_launch(void* memb, void* e_count, void* v_count, const void* u, c
   auto* fv = static_cast<const float*>(wv);
   auto* cf = static_cast<const float*>(coef);
   auto* pt = static_cast<int*>(parts);
+  auto* wk = static_cast<unsigned char*>(ws);
 #define EBG_CASE(R, WT, WN)                                                                  \
   if (!!range == R && !!weighted == WT && !!window == WN)                                    \
     return (int)launch<R, WT, WN>(pipe, s, mb, e, vc, uu, vv, ok, fu, fv, cf, pt, p, B, \
-                                  nblocks);
+                                  nblocks, wk);
   EBG_CASE(false, false, false)
   EBG_CASE(false, false, true)
   EBG_CASE(false, true, false)

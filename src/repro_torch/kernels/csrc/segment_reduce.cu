@@ -23,10 +23,9 @@
 // hubs make some destination runs very long, so no run is left to one
 // thread. MIN: each warp reads 32 consecutive edges (coalesced), reduces
 // every run of equal destinations among them with a segmented shuffle
-// scan, and the last lane of each run commits the run's partial with the
-// CAS-loop float min shared with bsp_superstep.cu (exact for negative
-// values, as segment_max needs, and order-free: bit for bit the
-// reference's). SUM is the segmented sum of segmented_sum.cuh (4 edges a
+// scan, and the last lane of each run commits the run's partial with a
+// CAS-loop float min (exact for negative values, as segment_max needs,
+// and order-free: bit for bit the reference's). SUM is the segmented sum of segmented_sum.cuh (4 edges a
 // thread in 16-byte loads, a CTA-wide scan, one f64 atomic per run per
 // 1024-edge tile); it adds in another order than the reference, so it adds
 // the f32 products in f64 and rounds once: a hub's ~10^4 f32 atomics into
@@ -36,7 +35,6 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
-#include "atomic_min.cuh"
 #include "segmented_sum.cuh"
 
 namespace {
@@ -47,6 +45,20 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr int kThreads = 256;
 constexpr float kInf = 3.0e38f;
 constexpr unsigned kPending = 0xffffffffu;  // the host flag until the kernel writes it
+
+// *addr = min(*addr, x) as one atomic step. The CAS loop compares floats,
+// so it is exact for negative values too (negated labels under
+// segment_max), where an integer atomicMin on the bit patterns would not
+// be. *addr is read through L2 (other CTAs write it).
+__device__ __forceinline__ void atomic_min_f32(float* addr, float x) {
+  unsigned* a = reinterpret_cast<unsigned*>(addr);
+  unsigned old = __float_as_uint(__ldcg(addr));
+  while (x < __uint_as_float(old)) {
+    const unsigned assumed = old;
+    old = atomicCAS(a, assumed, __float_as_uint(x));
+    if (old == assumed) return;
+  }
+}
 
 // MIN, one cooperative launch: out = val[:n] and the flag zeroed; a grid
 // barrier; the edges, one a thread, grid-strided; a grid barrier; the flag

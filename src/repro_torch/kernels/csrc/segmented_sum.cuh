@@ -1,5 +1,7 @@
 // The segmented sum of gathered products shared by the sum kernels of
-// bsp_superstep.cu and segment_reduce.cu.
+// bsp_superstep.cu and segment_reduce.cu, and its segmented scan
+// (`tile_scan`), which bsp_superstep.cu's min kernel takes with an int
+// min for its combine.
 //
 // A CTA sums a tile of kTile consecutive edges of one stream at a time,
 //   sum over the edges e of a run of equal ld[e] of (double)(g[ls[e]] * w[e])
@@ -75,31 +77,123 @@ __device__ __forceinline__ void load_edges(Edges& x, const int* __restrict__ ls,
   }
 }
 
+// The combines of `tile_scan`: an f64 sum (the sum kernels) and an int
+// min (bsp_superstep.cu's min, over order-preserving keys of floats).
+struct SumF64 {
+  using T = double;
+  static __device__ __forceinline__ T identity() { return 0.0; }
+  static __device__ __forceinline__ T op(T a, T b) { return a + b; }
+};
+struct MinI32 {
+  using T = int;
+  static __device__ __forceinline__ T identity() { return 0x7fffffff; }
+  static __device__ __forceinline__ T op(T a, T b) { return min(a, b); }
+};
+
+// The segmented reduction of one tile: this thread's kEdges consecutive
+// edges have destinations d and values x; call emit(d, run, first, last)
+// for every run of equal destinations that ends in this thread's edges,
+// with `run` the Op-combine of the run's values within the tile, and first
+// and last the destinations of the tile's first and last edge. Runs with
+// a negative d (past the stream's end, or an id the guard refused) are
+// not emitted. kCta: the tile is the CTA's edges, a run is emitted once a
+// tile and every thread of the CTA calls it (it synchronizes the CTA);
+// else the tile is the warp's edges, a run that crosses warps is emitted
+// by each (first and last are -1), and nothing is synchronized — for a
+// combine whose result does not change when a part is emitted twice (min).
+template <typename Op, bool kCta = true, typename Emit>
+__device__ __forceinline__ void tile_scan(const int (&d)[kEdges],
+                                          const typename Op::T (&x)[kEdges], Emit&& emit) {
+  using T = typename Op::T;
+  __shared__ int first_d[kWarps], last_d[kWarps], flagged[kWarps];
+  __shared__ T tail[kWarps];
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+
+  // Run heads: an edge whose destination differs from the edge before it
+  // (the tile's first edge is one).
+  int prev = __shfl_up_sync(kFull, d[kEdges - 1], 1);
+  int next = __shfl_down_sync(kFull, d[0], 1);
+  int first = -1, last = -1;
+  if constexpr (kCta) {
+    if (lane == 0) first_d[warp] = d[0];
+    if (lane == 31) last_d[warp] = d[kEdges - 1];
+    __syncthreads();
+    if (lane == 0 && warp > 0) prev = last_d[warp - 1];
+    if (lane == 31) next = warp + 1 < kWarps ? first_d[warp + 1] : ~d[kEdges - 1];
+    first = first_d[0], last = last_d[kWarps - 1];
+  } else if (lane == 31) {
+    next = ~d[kEdges - 1];
+  }
+  bool head[kEdges];
+  head[0] = (kCta ? t : lane) == 0 || d[0] != prev;
+#pragma unroll
+  for (int k = 1; k < kEdges; ++k) head[k] = d[k] != d[k - 1];
+
+  // The thread's trailing run: its combine, and whether the thread holds a head.
+  T S = Op::identity();
+  bool F = false;
+#pragma unroll
+  for (int k = 0; k < kEdges; ++k) {
+    S = head[k] ? x[k] : Op::op(S, x[k]);
+    F |= head[k];
+  }
+  // Inclusive segmented scan of the trailing runs over the warp: lane l
+  // combines lanes back to the nearest one holding a head.
+  const unsigned flags = __ballot_sync(kFull, F);
+  const unsigned upto = flags & (kFull >> (31 - lane));
+  const int start = upto ? 31 - __clz(upto) : 0;
+  T I = S;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const T y = __shfl_up_sync(kFull, I, off);
+    if (lane - off >= start) I = Op::op(I, y);
+  }
+  // Across warps: the run open at this warp's start, combined over the
+  // warps before it back to the nearest one holding a head.
+  T carry_w = Op::identity();
+  if constexpr (kCta) {
+    if (lane == 31) {
+      tail[warp] = I;
+      flagged[warp] = flags != 0;
+    }
+    __syncthreads();
+    for (int j = 0; j < warp; ++j) carry_w = flagged[j] ? tail[j] : Op::op(carry_w, tail[j]);
+    if (!upto) I = Op::op(I, carry_w);
+  }
+  T carry = __shfl_up_sync(kFull, I, 1);
+  if (lane == 0) carry = carry_w;
+
+  // Emit every run that ends in this thread's edges.
+  T run = head[0] ? Op::identity() : carry;
+#pragma unroll
+  for (int k = 0; k < kEdges; ++k) {
+    if (k > 0 && head[k]) {
+      if (d[k - 1] >= 0) emit(d[k - 1], run, first, last);
+      run = Op::identity();
+    }
+    run = Op::op(run, x[k]);
+  }
+  if (next != d[kEdges - 1] && d[kEdges - 1] >= 0) emit(d[kEdges - 1], run, first, last);
+}
+
 // Sum one tile whose edges this thread loaded into `in` (edges e0.. of a
 // stream of E), gathering from g, and call emit(d, sum, first, last) for
-// every run that ends in this thread's edges, with first and last the
-// destinations of the tile's first and last edge. Runs with a negative d
-// (past the stream's end, or an id the guard refused) are not emitted.
-// Every thread of the CTA calls it (it synchronizes the CTA). kCheck: an
+// every run that ends in this thread's edges (`tile_scan`). kCheck: an
 // edge with an id outside [0, V) (ls) or [0, n) (ld) adds nothing and
 // sets its bits in *err.
 template <bool kCheck, typename Emit>
 __device__ __forceinline__ void tile_sum(Edges in, const float* __restrict__ g, long long E,
                                          long long e0, int V, int n, unsigned* __restrict__ err,
                                          Emit&& emit) {
-  __shared__ int first_d[kWarps], last_d[kWarps], flagged[kWarps];
-  __shared__ double tail[kWarps];
-  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  int* const d = in.d;
-
+  const int lane = threadIdx.x & 31;
   double x[kEdges];
   unsigned bad = 0;
 #pragma unroll
   for (int k = 0; k < kEdges; ++k) {
     if (kCheck && e0 + k < E) {
-      const unsigned b = id_error(in.s[k], d[k], V, n);
+      const unsigned b = id_error(in.s[k], in.d[k], V, n);
       bad |= b;
-      if (b & kBadDst) d[k] = -1;
+      if (b & kBadDst) in.d[k] = -1;
       if (b & kBadSrc) in.w[k] = 0.0f;  // no gather through it
     }
     x[k] = in.w[k] != 0.0f ? (double)__fmul_rn(__ldg(g + in.s[k]), in.w[k]) : 0.0;
@@ -108,65 +202,7 @@ __device__ __forceinline__ void tile_sum(Edges in, const float* __restrict__ g, 
     bad = __reduce_or_sync(kFull, bad);
     if (bad && lane == 0) atomicOr(err, bad);
   }
-
-  // Run heads: an edge whose destination differs from the edge before it
-  // (the tile's first edge is one).
-  if (lane == 0) first_d[warp] = d[0];
-  if (lane == 31) last_d[warp] = d[kEdges - 1];
-  __syncthreads();
-  int prev = __shfl_up_sync(kFull, d[kEdges - 1], 1);
-  int next = __shfl_down_sync(kFull, d[0], 1);
-  if (lane == 0 && warp > 0) prev = last_d[warp - 1];
-  if (lane == 31) next = warp + 1 < kWarps ? first_d[warp + 1] : ~d[kEdges - 1];
-  const int first = first_d[0], last = last_d[kWarps - 1];
-  bool head[kEdges];
-  head[0] = t == 0 || d[0] != prev;
-#pragma unroll
-  for (int k = 1; k < kEdges; ++k) head[k] = d[k] != d[k - 1];
-
-  // The thread's trailing run: its sum, and whether the thread holds a head.
-  double S = 0.0;
-  bool F = false;
-#pragma unroll
-  for (int k = 0; k < kEdges; ++k) {
-    S = head[k] ? x[k] : S + x[k];
-    F |= head[k];
-  }
-  // Inclusive segmented scan of the trailing runs over the warp: lane l
-  // adds lanes back to the nearest one holding a head.
-  const unsigned flags = __ballot_sync(kFull, F);
-  const unsigned upto = flags & (kFull >> (31 - lane));
-  const int start = upto ? 31 - __clz(upto) : 0;
-  double I = S;
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const double y = __shfl_up_sync(kFull, I, off);
-    if (lane - off >= start) I += y;
-  }
-  if (lane == 31) {
-    tail[warp] = I;
-    flagged[warp] = flags != 0;
-  }
-  __syncthreads();
-  // Across warps: the run open at this warp's start, summed over the warps
-  // before it back to the nearest one holding a head.
-  double carry_w = 0.0;
-  for (int j = 0; j < warp; ++j) carry_w = flagged[j] ? tail[j] : carry_w + tail[j];
-  if (!upto) I += carry_w;
-  double carry = __shfl_up_sync(kFull, I, 1);
-  if (lane == 0) carry = carry_w;
-
-  // Emit every run that ends in this thread's edges.
-  double run = head[0] ? 0.0 : carry;
-#pragma unroll
-  for (int k = 0; k < kEdges; ++k) {
-    if (k > 0 && head[k]) {
-      if (d[k - 1] >= 0) emit(d[k - 1], run, first, last);
-      run = 0.0;
-    }
-    run += x[k];
-  }
-  if (next != d[kEdges - 1] && d[kEdges - 1] >= 0) emit(d[kEdges - 1], run, first, last);
+  tile_scan<SumF64>(in.d, x, emit);
 }
 
 // Walk the tiles of `rows` streams of E edges each (row r at ls + r * E,
@@ -201,16 +237,17 @@ __device__ __forceinline__ void for_tiles(const int* __restrict__ ls, const int*
 }
 
 // Prepare `kern` for persistent launches and return how many CTAs of
-// kThreads of it the card holds at once, the grid of such a launch
+// kThreads of it (with `smem` bytes of dynamic shared memory) the card
+// holds at once, the grid of such a launch
 // (callers keep it, as the queries cost host time). The kernel needs
 // little shared memory, so the rest of the SM's 256 KB goes to L1, which
 // serves the gathers that hit.
-inline long long resident_ctas(const void* kern) {
+inline long long resident_ctas(const void* kern, size_t smem = 0) {
   cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout, 0);
   int dev = 0, sms = 0, per_sm = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kThreads, 0);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kThreads, smem);
   return (long long)sms * (per_sm > 0 ? per_sm : 1);
 }
 

@@ -10,7 +10,8 @@ softmax and the weighted sum of v are taken in f32, and the result
 [B, Hq, D] is cast to q's dtype.
 
 Dispatch: a CPU tensor runs the plain version; a CUDA tensor launches the
-kernel (head_dim 32, 64, 128 or 256), and anything else raises. The kernel
+kernel (head_dim 1 to 256: a width outside HEAD_DIMS runs on the next one
+up, its rows zero-padded in shared memory), and anything else raises. The kernel
 splits S across CTAs (`split_count`) and merges the splits' partial states
 in a second launch on the same stream; each call counts once in `LAUNCHES`
 as "decode_attention".
@@ -31,16 +32,25 @@ from repro_torch.kernels.dispatch import (
 )
 
 DTYPES = (torch.float32, torch.bfloat16)
-HEAD_DIMS = (32, 64, 128, 256)  # the CUDA kernel's: 16-byte chunks, four warps a row
+HEAD_DIMS = (32, 64, 128, 256)  # the CUDA kernel's builds: 16-byte chunks, four warps a row
 SPLIT_KEYS = 1024  # a split streams at most this many keys ...
 WAVE_CTAS = 2 * 3  # ... and the grid fills at least two waves of three CTAs an SM
 MAX_SPLITS = 1024
 
 
+def padded_dim(D: int) -> int:
+    """The built width a head_dim D runs at: the least of HEAD_DIMS >= D."""
+    for width in HEAD_DIMS:
+        if D <= width:
+            return width
+    raise ValueError(f"the CUDA kernel takes head_dim up to {HEAD_DIMS[-1]}, got {D}")
+
+
 def tile_keys(D: int, dtype: torch.dtype) -> int:
-    """Keys a tile of the kernel's ring (`Shape<T, D>::TK` in the source):
-    rows of 512 bytes or more take 32-key tiles, shorter rows 64."""
-    return 32 if D * torch.finfo(dtype).bits // 8 >= 512 else 64
+    """Keys a tile of the kernel's ring (`Shape<T, D>::TK` in the source, at
+    the padded width): rows of 512 bytes or more take 32-key tiles, shorter
+    rows 64."""
+    return 32 if padded_dim(D) * torch.finfo(dtype).bits // 8 >= 512 else 64
 
 
 def split_count(B: int, S: int, Hkv: int, G: int, sms: int, tile: int = 64) -> int:
@@ -96,11 +106,7 @@ def decode_attention(q, k, v, *, softcap: float = 0.0):
         return decode_attention_plain(q, k, v, softcap=softcap)
     if dev.type != "cuda":
         raise ValueError(f"decode_attention runs on CPU or CUDA tensors, got {dev}")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"the CUDA kernel takes head_dim in {HEAD_DIMS}, got {D}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned")
+    padded_dim(D)  # raises above 256
     G = Hq // Hkv
     nsplit = split_count(B, S, Hkv, G, _sm_count(dev), tile_keys(D, q.dtype))
     workspace = c_function("decode_attn", "decode_attn_workspace", [ctypes.c_int] * 5,

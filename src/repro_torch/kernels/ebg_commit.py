@@ -44,8 +44,6 @@ from repro_torch.kernels.dispatch import (
 )
 
 BALANCE_MODES = ("static", "range")
-MAX_PARTS = 1024
-MAX_SMEM_BYTES = 232_448  # an H100 block's dynamic shared memory ceiling
 
 
 def _bit(b: int) -> int:
@@ -229,25 +227,22 @@ def _launch_cuda(keep_bits, e_count, v_count, u, v, valid, coef, wu, wv, parts, 
                  p, vw, block, nblocks, balance, window, keep_out):
     """Transpose the bitset, walk the blocks on it, and transpose it back
     into `keep_out` (which may be `keep_bits`)."""
-    if p > MAX_PARTS:
-        raise ValueError(f"the CUDA commit kernel takes at most {MAX_PARTS} parts, got {p}")
-    W = (p + 31) // 32
-    smem = block * (8 * W + 24) + 768  # the block-wide kernel's; any shape that runs fits it
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(
-            f"block={block} with p={p} needs {smem} bytes of shared memory "
-            f"(limit {MAX_SMEM_BYTES}); use a smaller block"
-        )
     check_ids(("u", u, 32 * vw), ("v", v, 32 * vw))
     memb = keep_bits_to_memb(keep_bits)
-    fn = c_function("ebg_commit", "ebg_commit_launch",
-                    [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
     weighted = wu is not None
+    # Shapes whose per-edge staging does not fit in shared memory stage it
+    # in a global workspace (the kernel says how much it needs).
+    ws_bytes = c_function("ebg_commit", "ebg_commit_workspace_bytes", [ctypes.c_int] * 3,
+                          ctypes.c_longlong)(p, block, int(weighted))
+    ws = (torch.empty(((ws_bytes + 15) // 16, 4), dtype=torch.int32, device=memb.device)
+          if ws_bytes else None)
+    fn = c_function("ebg_commit", "ebg_commit_launch",
+                    [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
     err = fn(
         memb.data_ptr(), e_count.data_ptr(), v_count.data_ptr(),
         u.data_ptr(), v.data_ptr(), valid.data_ptr(),
         wu.data_ptr() if weighted else None, wv.data_ptr() if weighted else None,
-        coef.data_ptr(), parts.data_ptr(),
+        coef.data_ptr(), parts.data_ptr(), None if ws is None else ws.data_ptr(),
         p, block, nblocks, int(balance == "range"), int(weighted), int(window),
         cuda_stream_handle(),
     )

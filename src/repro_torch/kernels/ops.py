@@ -60,7 +60,7 @@ def segment_max(lsrc, ldst, weight, val, *, num_out: int, block_e: int = 512):
 
 
 def bsp_superstep(lsrc, ldst, weight, val, *, num_out: int, combine: str = "min",
-                  inner_cap: int = 1, out_degree=None, block_e: int = 512):
+                  inner_cap: int = 1, out_degree=None, block_e: int = 512, err=None):
     """Whole-local-stage BSP superstep for a batch of workers.
 
     combine="min" iterates the min-plus relaxation to local convergence
@@ -68,21 +68,27 @@ def bsp_superstep(lsrc, ldst, weight, val, *, num_out: int, combine: str = "min"
     the same kernel via negation (`weight` is then the pad carrier only:
     real edges hold 0, pads INF); combine="sum" is one out-degree-normalized
     push-sum sweep (pads carry weight 0; `out_degree` [p, num_out] f32).
+    An id outside [0, num_out) raises ValueError; with `err` (a zeroed
+    int32 [1] tensor on the stream's device) the kernel ORs its id guard's
+    bits into it instead, for the caller to read when it syncs
+    (`bsp_superstep.check_flag`).
     Returns (new_val [p, num_out] f32, per-worker inner iterations [p] int32).
     """
     if combine not in ("min", "max", "sum"):
         raise ValueError(f"combine must be 'min', 'max' or 'sum', got {combine!r}")
     if combine == "max":
         out, iters = bsp_superstep(lsrc, ldst, weight, -val, num_out=num_out, combine="min",
-                                   inner_cap=inner_cap, block_e=block_e)
+                                   inner_cap=inner_cap, block_e=block_e, err=err)
         return -out, iters
     if (combine == "sum") != (out_degree is not None):
         raise ValueError("out_degree is required for combine='sum' and only then")
     identity = 0.0 if combine == "sum" else INF
     lsrc, ldst, weight = pad_stream(lsrc, ldst, weight, num_out=num_out, block_e=block_e,
                                     identity=identity)
-    return _bsp.bsp_superstep(lsrc, ldst, weight, val, num_out=num_out, combine=combine,
-                              inner_cap=inner_cap, out_degree=out_degree)
+    kw = dict(num_out=num_out, combine=combine, inner_cap=inner_cap, out_degree=out_degree)
+    if err is None:
+        return _bsp.bsp_superstep(lsrc, ldst, weight, val, **kw)
+    return _bsp.launch_flagged(lsrc, ldst, weight, val, err=err, **kw)
 
 
 def commit_coefficients(*, alpha, beta, inv_e, inv_v, eps, device) -> torch.Tensor:

@@ -263,3 +263,13 @@ def test_repro_torch_loads_neither_jax_nor_reference():
                          timeout=300)
     assert run.returncode == 0, run.stdout + run.stderr
     assert int(run.stdout.split()[0]) >= 20  # every module was imported
+
+
+@pytest.mark.parametrize("impl", ["ref", "pallas"])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("D", [16, 112])
+def test_decode_attention_other_head_dims_match_reference(D, dtype, impl):
+    """Head dims outside the CUDA kernel's built widths (16: the reduced
+    model configs'; 112: kimi_k2's), which the card runs zero-padded."""
+    _decode_both(2, 8, 2, D, 384, 128, dtype, impl, 0.0, D)
+    _decode_both(1, 4, 4, D, 256, 128, dtype, impl, 30.0, D + 1)

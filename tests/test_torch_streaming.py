@@ -109,6 +109,14 @@ def test_commit_block_matches_reference_oracle(window, balance, weighted, p, V, 
     np.testing.assert_array_equal(e_t.numpy(), e)
 
 
+@pytest.mark.parametrize("window", [False, True], ids=["frozen", "window"])
+@pytest.mark.parametrize("balance,weighted", [("static", False), ("range", True)])
+def test_commit_block_beyond_1024_parts_matches_reference_oracle(window, balance, weighted):
+    """p = 1,100: more parts than a CTA has threads (the card's workspace
+    path gives each thread several), against the reference's oracle."""
+    test_commit_block_matches_reference_oracle(window, balance, weighted, 1100, 3000, 48)
+
+
 def test_commit_stream_equals_blocks_in_order():
     p, V, B, n = 4, 150, 16, 5
     keep, e, v, _, _, _, _, _, coef = _commit_inputs(1, p, V, B, False)

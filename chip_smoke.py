@@ -18,9 +18,10 @@ Phases; a failed check raises and the script exits non-zero:
               (sum, to rtol 1e-5);
               segment_reduce min and max (bitwise) and sum (rtol 1e-5) on
               two workers' CC and PageRank streams and on a hub-heavy
-              stream, and the id guards of segment_reduce and of
-              bsp_superstep's min, max and sum (an out-of-range id must
-              raise ValueError, and the next good call succeed);
+              stream, and the id guards of segment_reduce, of
+              bsp_superstep's min, max and sum and of ebg_membership (an
+              out-of-range id must raise ValueError, and the next good call
+              succeed);
               ebg_membership on the smoke partition's bitset (bitwise);
               decode_attention at the parity tests' shapes and at the
               head_dims the kernel runs zero-padded (kimi_k2's 112, the
@@ -32,7 +33,16 @@ Phases; a failed check raises and the script exits non-zero:
   3. pinned   the smoke graph and twitter_like through GraphPipeline on the
               card (p=32, ebg_chunked): every number the JAX reference gives
               on the CPU, exactly (RF and imbalances to 6 decimals).
-  4. full     the full-width path: R-MAT with LiveJournal's scale and skew
+  4. baselines
+              the paper's baselines beside ebg_chunked on twitter_like
+              (p=32) through GraphPipeline: hash, DBH and CVC partition on
+              the card, NE and METIS-like on the host; each then a
+              symmetric build and CC on the card, with the launch counts
+              zeroed just before and read just after. RF and imbalances
+              (6 decimals), CC's supersteps and messages equal the JAX
+              reference's; the labels equal label propagation. One line a
+              partitioner on stdout: the port's Table III/IV row.
+  5. full     the full-width path: R-MAT with LiveJournal's scale and skew
               (2^22 vertices, 2^26 edges), p=32, ebg_chunked, then CC, REACH,
               SSSP, BFS and PR through GraphPipeline. Kernel launch counts
               are zeroed just before and read just after; the results are
@@ -55,7 +65,12 @@ Phases; a failed check raises and the script exits non-zero:
               plain version, on the smoke graph). bsp_superstep.min's
               entry carries the share of the stream's edges that took part
               in each pass (the frontier). decode_attention is also timed
-              at kimi_k2's attention widths (head_dim 112).
+              at kimi_k2's attention widths (head_dim 112). ebg_membership's
+              entry carries its main kernel's time (kernel_ms) and its
+              transpose's (transpose_ms) beside the whole call. Last, hash,
+              DBH and CVC partition the full-width graph on the card,
+              bitwise against a numpy splitmix64 written here, with their
+              edges per second and metrics.
 
 Prints the card's name and power limit, the {"kernels": [...]} line, and last
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
@@ -126,6 +141,19 @@ PINNED = {
 }
 PROGRAMS = ("cc", "sssp", "bfs", "reach", "pr")
 INF_I32 = 2**31 - 1
+# The paper's baselines on twitter_like: the JAX reference on the CPU
+# (p=32, each baseline's defaults, then a symmetric build and CC with
+# compute_backend="xla"): RF, edge and vertex imbalance to 6 decimals, CC
+# (supersteps, total messages). tests/test_torch_partitioners.py holds the
+# same table and checks the port against it on the CPU.
+PINNED_BASELINES = {
+    "hash": (("9.568018", "1.010620", "1.008537"), (4, 1_209_490)),
+    "dbh": (("4.039308", "1.201895", "1.030388"), (4, 430_814)),
+    "cvc": (("5.081672", "1.120543", "1.055968"), (4, 612_352)),
+    "ne": (("2.847871", "1.000008", "2.273158"), (2, 263_570)),
+    "metis": (("3.354389", "20.466453", "7.109937"), (3, 328_897)),
+}
+HASH_FAMILY = ("hash", "dbh", "cvc")  # the baselines that run on the card
 
 
 def log(msg: str) -> None:
@@ -385,6 +413,33 @@ def check_id_guard(dev):
               f"bsp_superstep {combine}: a good call after a refused one")
 
 
+def check_membership_guard(dev):
+    """ebg_membership on the card refuses ids -1 and 32·vw with ValueError
+    (the kernel's guard and its flag), and a good call right after
+    succeeds."""
+    from repro_torch.kernels import ebg_score, ops
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    p, vw, E = 33, 40, 4096
+    keep = torch.randint(-2**31, 2**31 - 1, (p, vw), generator=gen, device=dev,
+                         dtype=torch.int32)
+    ends = {n: torch.randint(0, 32 * vw, (E,), generator=gen, device=dev, dtype=torch.int32)
+            for n in ("u", "v")}
+    for name in ("u", "v"):
+        for bad in (-1, 32 * vw):
+            args = {n: t.clone() for n, t in ends.items()}
+            args[name][E // 3] = bad
+            try:
+                ops.ebg_membership(keep, args["u"], args["v"])
+            except ValueError as e:
+                check(f"{name} has ids" in str(e), f"ebg_membership: wrong refusal {e}")
+            else:
+                raise AssertionError(f"ebg_membership took {name} id {bad}")
+    got = ops.ebg_membership(keep, ends["u"], ends["v"])
+    check(torch.equal(got, ebg_score.ebg_membership_plain(keep, ends["u"], ends["v"])),
+          "ebg_membership: a good call after a refused one")
+
+
 def pr_share(val, deg):
     """PageRank's per-edge source share, as the sum kernel's gather takes it."""
     return torch.where(deg > 0, val / deg, 0.0)
@@ -543,8 +598,9 @@ def phase_kernels(dev):
         f"max |err| {errs}")
     errs.update(phase_new_kernels(g, pipe, sym, dirn, dev))
     check_id_guard(dev)
-    log("kernels: segment_reduce and bsp_superstep refuse out-of-range ids on the card, then "
-        "take good ones")
+    check_membership_guard(dev)
+    log("kernels: segment_reduce, bsp_superstep and ebg_membership refuse out-of-range ids on "
+        "the card, then take good ones")
     return errs
 
 
@@ -572,6 +628,147 @@ def phase_pinned(dev):
         times[name] = time.perf_counter() - t
         log(f"pinned: {name} matches the reference ({times[name]:.1f} s)")
     return times
+
+
+# ------------------------------------------------------ the paper's baselines
+
+
+def np_splitmix(x: np.ndarray, seed: int) -> np.ndarray:
+    """splitmix64 of non-negative int64 `x` in numpy uint64: the hash of the
+    reference's `repro.core.baselines`, written out here as the oracle of
+    the port's int64 version."""
+    mix = np.uint64(0x9E3779B97F4A7C15)
+    with np.errstate(over="ignore"):
+        z = x.astype(np.uint64) + np.uint64(seed) * mix + mix
+        z = (z ^ (z >> np.uint64(30))) * np.uint64(0xBF58476D1CE4E5B9)
+        z = (z ^ (z >> np.uint64(27))) * np.uint64(0x94D049BB133111EB)
+    return z ^ (z >> np.uint64(31))
+
+
+def np_hash_family(name: str, src: np.ndarray, dst: np.ndarray, V: int, p: int,
+                   seed: int = 0) -> np.ndarray:
+    """The hash family's parts in numpy (int32), as the reference computes them."""
+    src = src.astype(np.int64)
+    dst = dst.astype(np.int64)
+    if name == "hash":
+        h = np_splitmix(src * 2654435761 + dst, seed)
+        return (h % np.uint64(p)).astype(np.int32)
+    if name == "dbh":
+        deg = np.bincount(src, minlength=V) + np.bincount(dst, minlength=V)
+        h = np_splitmix(np.where(deg[src] <= deg[dst], src, dst), seed)
+        return (h % np.uint64(p)).astype(np.int32)
+    pr = int(np.floor(np.sqrt(p)))
+    while p % pr:
+        pr -= 1
+    pc = p // pr
+    r = np_splitmix(src, seed) % np.uint64(pr)
+    c = np_splitmix(dst, seed + 1) % np.uint64(pc)
+    return (r * np.uint64(pc) + c).astype(np.int32)
+
+
+def baseline_row(name, g, dev, pinned_metrics, pinned_cc, labels):
+    """One partitioner on `g` through GraphPipeline on the card, then a
+    symmetric build and CC, with the launch counts zeroed just before and
+    read just after. Checks the pinned metrics, CC's supersteps and
+    messages, and the labels against label propagation."""
+    from repro_torch.api.pipeline import GraphPipeline
+    from repro_torch.kernels import dispatch
+
+    dispatch.reset_launches()
+    t = time.perf_counter()
+    pipe = GraphPipeline(g, device=dev).partition(name, parts=PARTS)
+    res = pipe.result
+    sync()
+    part_s = time.perf_counter() - t
+    check(res.part.device.type == "cuda", f"{name}: the partition is not on the card")
+    m = pipe.metrics
+    got = tuple(f"{x:.6f}" for x in (m.replication_factor, m.edge_imbalance, m.vertex_imbalance))
+    check(got == pinned_metrics, f"baseline {name}: metrics {got} != {pinned_metrics}")
+    t = time.perf_counter()
+    pipe.subgraphs_for(symmetrize=True)
+    build_s = time.perf_counter() - t
+    t = time.perf_counter()
+    run = pipe.build(symmetrize=True).run("cc")
+    sync()
+    cc_s = time.perf_counter() - t
+    launches = dict(dispatch.LAUNCHES)
+    check(launches.get("bsp_superstep.min", 0) > 0,
+          f"baseline {name}: CC launched bsp_superstep.min no time")
+    steps = (run.stats.supersteps, run.stats.total_messages)
+    check(steps == pinned_cc, f"baseline {name}: CC {steps} != {pinned_cc}")
+    cov = g.covered_vertices()
+    check(np.array_equal(run.to_global()[cov], labels[cov]),
+          f"baseline {name}: CC labels differ from label propagation")
+    row = dict(replication_factor=m.replication_factor, edge_imbalance=m.edge_imbalance,
+               vertex_imbalance=m.vertex_imbalance, cc_supersteps=steps[0],
+               cc_messages=steps[1], components=run.num_components(), partition_s=part_s,
+               build_s=build_s, cc_s=cc_s, launches=launches)
+    line = (f"baseline twitter_like p={PARTS} {name}: RF {got[0]} EI {got[1]} VI {got[2]} "
+            f"CC {steps[0]} supersteps {steps[1]} messages; partition {part_s:.3f} s")
+    print(line, flush=True)
+    log(line)
+    return row
+
+
+def phase_baselines(dev):
+    """The paper's baselines (hash, DBH, CVC, NE, METIS-like) beside
+    ebg_chunked on twitter_like at p=32: the port's Table III/IV row for
+    each, pinned to the JAX reference. hash/dbh/cvc partition on the card;
+    NE and METIS-like run their loops on the host."""
+    from repro_torch.graph.generate import make_graph
+
+    g = make_graph("twitter_like")
+    src = g.src.to(dev).long()
+    dst = g.dst.to(dev).long()
+    labels = oracle_labels(src, dst, g.num_vertices, "amin").cpu().numpy()
+    del src, dst
+    pin = PINNED["twitter_like"]
+    rows = {"ebg_chunked": baseline_row("ebg_chunked", g, dev, pin["metrics"],
+                                        pin["runs"]["cc"], labels)}
+    for name, (metrics, cc) in PINNED_BASELINES.items():
+        rows[name] = baseline_row(name, g, dev, metrics, cc, labels)
+    return rows
+
+
+def measure_hash_family(g, dev):
+    """hash, DBH and CVC on the full-width graph on the card: each call's
+    wall from host edges (the upload included) and its device time with
+    the edges already on the card; `part` bitwise against the numpy
+    splitmix64 above; the partition's metrics."""
+    from repro_torch.core import PARTITIONERS, partition_metrics
+    from repro_torch.core.types import Graph
+
+    src, dst = g.src.numpy(), g.dst.numpy()
+    on_card = Graph(src=g.src.to(dev), dst=g.dst.to(dev), num_vertices=g.num_vertices)
+    out = {}
+    for name in HASH_FAMILY:
+        fn = PARTITIONERS[name]
+        sync()
+        t = time.perf_counter()
+        res = fn(g, PARTS, device=dev)
+        sync()
+        wall_s = time.perf_counter() - t
+        check(res.part.device.type == "cuda", f"{name}: the partition is not on the card")
+        want = np_hash_family(name, src, dst, g.num_vertices, PARTS)
+        check(np.array_equal(res.part.cpu().numpy(), want),
+              f"{name} at full width differs from the numpy splitmix64")
+        device_ms = cuda_ms(lambda: fn(on_card, PARTS, device=dev), reps=5)
+        t = time.perf_counter()
+        m = partition_metrics(g, res)
+        metrics_s = time.perf_counter() - t
+        out[name] = dict(wall_s=wall_s, device_ms=device_ms,
+                         edges_per_s=g.num_edges / wall_s,
+                         edges_per_s_on_card=g.num_edges / (device_ms / 1e3),
+                         replication_factor=m.replication_factor,
+                         edge_imbalance=m.edge_imbalance, vertex_imbalance=m.vertex_imbalance,
+                         metrics_s=metrics_s)
+        log(f"full: {name} == numpy splitmix64; {g.num_edges / wall_s:.4g} edges/s with the "
+            f"upload, {out[name]['edges_per_s_on_card']:.4g} on the card; RF "
+            f"{m.replication_factor:.6f} EI {m.edge_imbalance:.6f} VI {m.vertex_imbalance:.6f}")
+        del res
+    del on_card
+    torch.cuda.empty_cache()
+    return out
 
 
 # --------------------------------------------------- full width: oracles
@@ -676,6 +873,7 @@ def phase_full(dev, log2_edges):
               for p, r in runs.items()},
     )
     kernels = measure_kernels(g, pipe, runs, launches, dev)
+    summary["hash_family"] = measure_hash_family(g, dev)
     return summary, kernels
 
 
@@ -908,15 +1106,24 @@ def measure_transposes(keep, launches):
 
 
 def measure_membership(keep, u, v, launches):
-    """ebg_membership over the full partition's bitset and a stream slice."""
+    """ebg_membership over the full partition's bitset and a stream slice:
+    the wrapper's call (transpose, main kernel, the wait for the id flag),
+    the main kernel alone and the transpose alone."""
     from repro_torch.kernels import ebg_score, ops
 
     got = compare_membership(keep, u, v)
     ms = cuda_ms(lambda: ops.ebg_membership(keep, u, v), reps=10)
+    memb = ebg_score.keep_to_memb(keep)
+    p = keep.shape[0]
+    kernel_ms = cuda_ms(lambda: ebg_score.launch_main(memb, u, v, p), reps=10)
+    transpose_ms = cuda_ms(lambda: ebg_score.keep_to_memb(keep), reps=20)
+    _, err = ebg_score.launch_main(memb, u, v, p)
+    check(int(err) == 0, "ebg_membership: the id guard fired on the stream's ids")
     plain_ms = cuda_ms(lambda: ebg_score.ebg_membership_plain(keep, u, v), reps=2)
     io_bytes = nbytes(keep, u, v, got)
     n_ops = 3.0 * got.numel()  # two bit tests and an add an output
     bound = max(io_bytes / HBM_BYTES_PER_S, n_ops / F32_FLOPS)
+    del memb
     return dict(
         name="ebg_membership", route="cuda",
         source="src/repro_torch/kernels/csrc/ebg_membership.cu",
@@ -924,7 +1131,7 @@ def measure_membership(keep, u, v, launches):
         launches=launches.get("ebg_membership", 0), max_abs_err=0.0,  # bitwise, checked
         ms=ms, plain_ms=plain_ms, bound_ms=1e3 * bound,
         bound_by="bytes" if io_bytes / HBM_BYTES_PER_S >= n_ops / F32_FLOPS else "operations",
-        library_ms=None, library=None,
+        library_ms=None, library=None, kernel_ms=kernel_ms, transpose_ms=transpose_ms,
         shape=f"bitset {tuple(keep.shape)}, {u.shape[0]} edges -> {tuple(got.shape)} f32",
     )
 
@@ -998,12 +1205,16 @@ def main(argv=None) -> int:
     build_s = phase_build()
     smoke_errs = phase_kernels(dev)
     pinned_s = phase_pinned(dev)
+    t = time.perf_counter()
+    baselines = phase_baselines(dev)
+    baselines_s = time.perf_counter() - t
     summary, kernels = phase_full(dev, args.full_log2_edges)
     total = time.perf_counter() - t0
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(dict(
         card=smi, build_s=build_s, smoke_kernel_errors=smoke_errs, pinned_s=pinned_s,
-        full=summary, kernels=kernels, total_s=total,
+        baselines=baselines, baselines_s=baselines_s, full=summary, kernels=kernels,
+        total_s=total,
     ), indent=1))
     log(f"all phases passed in {total:.1f} s")
 

@@ -1,11 +1,23 @@
 """repro_torch.api — partitioner registry, configs, and the `GraphPipeline`
 facade (imported lazily: core modules import the registry to register)."""
-from repro_torch.api.config import COMMIT_MODES, EBGConfig, EBVConfig, GreedyConfig, HDRFConfig
+from repro_torch.api.config import (
+    COMMIT_MODES,
+    EBGConfig,
+    EBVConfig,
+    GreedyConfig,
+    HashConfig,
+    HDRFConfig,
+    MetisLikeConfig,
+    NEConfig,
+)
 from repro_torch.api.registry import (
     PartitionerSpec,
+    RegistryFunctionView,
+    benchmark_partitioners,
     check_num_parts,
     get_partitioner,
     list_partitioners,
+    partitioner_names,
     register_partitioner,
 )
 

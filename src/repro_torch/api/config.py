@@ -114,3 +114,49 @@ class GreedyConfig(PartitionerConfig):
     def validate(self) -> None:
         _positive_finite(self.eps, "eps")
         _validate_block_knobs(self)
+
+
+def _validate_seed(seed) -> None:
+    _require(isinstance(seed, int) and not isinstance(seed, bool) and seed >= 0,
+             f"seed must be a non-negative int, got {seed!r}")
+
+
+@dataclasses.dataclass(frozen=True)
+class HashConfig(PartitionerConfig):
+    """Hash-family baselines (random edge hash, DBH, CVC)."""
+
+    seed: int = 0
+
+    def validate(self) -> None:
+        _validate_seed(self.seed)
+
+
+@dataclasses.dataclass(frozen=True)
+class NEConfig(PartitionerConfig):
+    """Neighbor Expansion [Zhang et al., KDD'17]."""
+
+    seed: int = 0
+
+    def validate(self) -> None:
+        _validate_seed(self.seed)
+
+
+@dataclasses.dataclass(frozen=True)
+class MetisLikeConfig(PartitionerConfig):
+    """Multilevel METIS-style stand-in: coarsen to at most `coarsen_to`
+    vertices, `refine_passes` label-propagation passes at the coarsest level."""
+
+    seed: int = 0
+    coarsen_to: int = 4096
+    refine_passes: int = 6
+
+    def validate(self) -> None:
+        _validate_seed(self.seed)
+        _require(
+            isinstance(self.coarsen_to, int) and self.coarsen_to >= 2,
+            f"coarsen_to must be an int >= 2, got {self.coarsen_to!r}",
+        )
+        _require(
+            isinstance(self.refine_passes, int) and self.refine_passes >= 0,
+            f"refine_passes must be a non-negative int, got {self.refine_passes!r}",
+        )

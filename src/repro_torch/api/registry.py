@@ -5,13 +5,22 @@ Partitioner modules self-register at import time:
     @register_partitioner("ebg", config=EBGConfig)
     def ebg_partition(graph, num_parts, *, alpha=1.0, ..., device=None): ...
 
-`_ensure_builtins` imports `repro_torch.core` lazily the first time the
-registry is queried (core modules import this one to register).
+The registry is the one source of enumeration: `repro_torch.core.PARTITIONERS`
+(`RegistryFunctionView`), the paper benchmark's partitioner list
+(`benchmark_partitioners`) and name validation (`partitioner_names`) are
+views of it. `_ensure_builtins` imports `repro_torch.core` lazily the first
+time the registry is queried (core modules import this one to register).
+
+The reference's `jit_compatible` and `compute_backends` capabilities are
+not carried over: both describe JAX's execution (tracing under `jax.jit`,
+the "xla"/"ref"/"pallas" hot-path choice), and the port runs eagerly and
+dispatches by device, with no `compute_backend`.
 """
 from __future__ import annotations
 
 import dataclasses
 import inspect
+from collections.abc import Mapping
 from typing import Callable, Optional
 
 from repro_torch.api.config import PartitionerConfig
@@ -29,7 +38,9 @@ class PartitionerSpec:
     name: str
     fn: Callable
     config_cls: type
+    deterministic: bool = True  # same inputs (incl. seed) -> same partition
     chunked: bool = False  # processes edges in blocks
+    benchmark_default: bool = True  # included in the paper benchmark suite
     scorer: Optional[str] = None  # streaming EdgeScorer name, if on that core
     description: str = ""
 
@@ -83,7 +94,9 @@ def register_partitioner(
     name: str,
     *,
     config: type = PartitionerConfig,
+    deterministic: bool = True,
     chunked: bool = False,
+    benchmark_default: bool = True,
     scorer: Optional[str] = None,
     description: str = "",
 ):
@@ -96,7 +109,8 @@ def register_partitioner(
         if not desc and fn.__doc__:
             desc = fn.__doc__.strip().splitlines()[0]
         _REGISTRY[name] = PartitionerSpec(
-            name=name, fn=fn, config_cls=config, chunked=chunked, scorer=scorer, description=desc,
+            name=name, fn=fn, config_cls=config, deterministic=deterministic, chunked=chunked,
+            benchmark_default=benchmark_default, scorer=scorer, description=desc,
         )
         return fn
 
@@ -120,3 +134,31 @@ def list_partitioners() -> tuple[PartitionerSpec, ...]:
     """All registered specs in registration order."""
     _ensure_builtins()
     return tuple(_REGISTRY.values())
+
+
+def partitioner_names() -> tuple[str, ...]:
+    return tuple(s.name for s in list_partitioners())
+
+
+def benchmark_partitioners() -> tuple[str, ...]:
+    """Names the paper benchmark suite enumerates (derived, not hand-kept)."""
+    return tuple(s.name for s in list_partitioners() if s.benchmark_default)
+
+
+class RegistryFunctionView(Mapping):
+    """A live `{name: fn}` view of the registry (`repro_torch.core.PARTITIONERS`):
+    partitioners registered after import stay visible through it."""
+
+    def __getitem__(self, name: str) -> Callable:
+        return get_partitioner(name).fn
+
+    def __iter__(self):
+        _ensure_builtins()
+        return iter(list(_REGISTRY))
+
+    def __len__(self) -> int:
+        _ensure_builtins()
+        return len(_REGISTRY)
+
+    def __repr__(self) -> str:
+        return f"RegistryFunctionView({list(self)})"

@@ -339,6 +339,7 @@ def ebg_partition(graph: Graph, num_parts: int, *, alpha: float = 1.0, beta: flo
 
 
 @register_partitioner("ebg_chunked", config=EBGConfig, chunked=True, scorer="ebv",
+                      benchmark_default=False,
                       description="Blocked EBG throughput variant (block=1 ≡ faithful)")
 def ebg_partition_chunked(graph: Graph, num_parts: int, *, alpha: float = 1.0, beta: float = 1.0,
                           block: int = 256, sort_edges: bool = True, commit: str = "frozen",

@@ -3,6 +3,7 @@
   - rmat(...)      : R-MAT power-law graph; a/b/c/d control skew (eta).
   - barabasi(...)  : Barabasi-Albert preferential attachment.
   - road_grid(...) : 2D lattice with diagonal shortcuts — USARoad analogue.
+  - estimate_eta(g): the power-law exponent of a graph's degrees (Table I).
 
 All generators return directed Graphs without self loops, deduplicated.
 The random streams are the reference's draw for draw, so the same seed
@@ -156,6 +157,26 @@ def road_grid(side: int, *, diag_prob: float = 0.1, seed: int = 0) -> Graph:
         ),
         V,
     )
+
+
+def estimate_eta(graph: Graph) -> float:
+    """Log-binned least-squares slope of the degree distribution (paper eq. 1;
+    Table I's eta). NaN for near-uniform degrees: not a power law.
+
+    Log-binning avoids the flat single-count tail that biases a naive fit.
+    """
+    deg = graph.degrees()
+    deg = deg[deg > 0].astype(np.float64)
+    if np.unique(deg).shape[0] < 8:
+        return float("nan")
+    bins = np.logspace(0, np.log10(deg.max() + 1), 24)
+    hist, edges = np.histogram(deg, bins=bins)
+    widths = np.diff(edges)
+    centers = np.sqrt(edges[:-1] * edges[1:])
+    density = hist / (widths * deg.shape[0])
+    m = density > 0
+    slope = np.polyfit(np.log(centers[m]), np.log(density[m]), 1)[0]
+    return float(-slope)
 
 
 REGISTRY = {

@@ -20,9 +20,10 @@
 // memb[32·vw, W] (bit i of word w = part 32w+i holds the vertex; W =
 // ⌈p/32⌉): an endpoint's parts are W consecutive words, so an edge's
 // gather is 2·W loads (2 at p = 32, where it was 2·p scattered sectors)
-// and a commit is one atomicOr. `transpose_kernel` (below; the wrappers
-// `keep_bits_to_memb` and `memb_to_keep_bits` of ebg_commit.py) converts
-// at the launch's start and end, a 32x32 bit block a warp, by ballots.
+// and a commit is one atomicOr. `membt::transpose_kernel` (in
+// memb_transpose.cuh; the wrappers `keep_bits_to_memb` and
+// `memb_to_keep_bits` of ebg_commit.py) converts at the launch's start and
+// end, a 32x32 bit block a warp, by ballots.
 //
 // What bounds it on an H100: the per-edge chain is strictly sequential
 // (edge j+1's argmin needs edge j's counters), so the cost is the latency
@@ -70,55 +71,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "memb_transpose.cuh"
+
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kThreads = 256;
-constexpr int kTransposeCols = 8;  // vertex words a warp transposes
 constexpr size_t kMaxSmem = 232448;
-
-// ------------------------------------------------------------ layout
-
-// A warp transposes the 32x32 bit blocks (parts 32w.., vertices 32c..) for
-// kTransposeCols consecutive c. keep -> memb: lane i holds part 32w+i's
-// word; the ballot of bit x over the lanes is vertex 32c+x's word.
-// memb -> keep: lane x holds vertex 32c+x's word; the ballot of bit i is
-// part 32w+i's word. Parts >= p read 0 and are not written.
-template <bool TO_MEMB>
-__global__ void transpose_kernel(const uint32_t* __restrict__ src, uint32_t* __restrict__ dst,
-                                 int p, int vw, int W) {
-  const int lane = threadIdx.x & 31;
-  const long long groups = (long long)((vw + kTransposeCols - 1) / kTransposeCols) * W;
-  const long long nwarps = (long long)gridDim.x * (blockDim.x >> 5);
-  for (long long gi = (long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5); gi < groups;
-       gi += nwarps) {
-    const int w = (int)(gi % W);
-    const int c0 = (int)(gi / W) * kTransposeCols;
-    const int part = 32 * w + lane;
-#pragma unroll
-    for (int cc = 0; cc < kTransposeCols; ++cc) {
-      const int c = c0 + cc;
-      if (c >= vw) break;  // warp-uniform
-      uint32_t word;
-      if (TO_MEMB) {
-        word = part < p ? src[(size_t)part * vw + c] : 0u;
-      } else {
-        word = src[((size_t)32 * c + lane) * W + w];
-      }
-      uint32_t mine = 0;
-#pragma unroll
-      for (int bit = 0; bit < 32; ++bit) {
-        const uint32_t col = __ballot_sync(kFull, (word >> bit) & 1u);
-        if (lane == bit) mine = col;
-      }
-      if (TO_MEMB) {
-        dst[((size_t)32 * c + lane) * W + w] = mine;
-      } else if (part < p) {
-        dst[(size_t)part * vw + c] = mine;
-      }
-    }
-  }
-}
 
 // ------------------------------------------------------------ helpers
 
@@ -685,20 +644,9 @@ extern "C" {
 // keep [p, vw] -> memb [32·vw, ⌈p/32⌉] (to_memb = 1), or back (to_memb = 0;
 // rows of keep are overwritten whole). Returns cudaGetLastError.
 int ebg_memb_transpose(const void* src, void* dst, int p, int vw, int to_memb, void* stream) {
-  if (p < 1 || vw < 1) return (int)cudaErrorInvalidValue;
-  const int W = (p + 31) / 32;
-  const long long groups = (long long)((vw + kTransposeCols - 1) / kTransposeCols) * W;
-  const long long blocks = (groups + 7) / 8;  // 8 warps a block
-  const int grid = (int)(blocks < 132 * 16 ? blocks : 132 * 16);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  auto* in = static_cast<const uint32_t*>(src);
-  auto* out = static_cast<uint32_t*>(dst);
-  if (to_memb) {
-    transpose_kernel<true><<<grid, 256, 0, s>>>(in, out, p, vw, W);
-  } else {
-    transpose_kernel<false><<<grid, 256, 0, s>>>(in, out, p, vw, W);
-  }
-  return (int)cudaGetLastError();
+  return (int)membt::launch_transpose(static_cast<const uint32_t*>(src),
+                                      static_cast<uint32_t*>(dst), p, vw, to_memb != 0,
+                                      static_cast<cudaStream_t>(stream));
 }
 
 // Bytes of the global workspace a launch of p parts and blocks of B edges

@@ -35,6 +35,7 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include "host_flag.cuh"
 #include "segmented_sum.cuh"
 
 namespace {
@@ -44,7 +45,6 @@ namespace cg = cooperative_groups;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kThreads = 256;
 constexpr float kInf = 3.0e38f;
-constexpr unsigned kPending = 0xffffffffu;  // the host flag until the kernel writes it
 
 // *addr = min(*addr, x) as one atomic step. The CAS loop compares floats,
 // so it is exact for negative values too (negated labels under
@@ -146,11 +146,7 @@ extern "C" {
 
 // 4 bytes of pinned host memory that the kernels can write (mapped): the
 // host pointer into *host, the device's pointer to it into *dev.
-int segment_reduce_host_flag(void** host, void** dev) {
-  cudaError_t err = cudaHostAlloc(host, sizeof(unsigned), cudaHostAllocMapped);
-  if (err == cudaSuccess) err = cudaHostGetDevicePointer(dev, *host, 0);
-  return (int)err;
-}
+int segment_reduce_host_flag(void** host, void** dev) { return (int)hostflag::alloc(host, dev); }
 
 // op: 0 = min (out seeded with val[:n]), 1 = sum (accumulated in f64 and
 // rounded into out). ws is the device workspace, 8-byte aligned: min, 8
@@ -178,7 +174,7 @@ int segment_reduce_launch(const void* lsrc, const void* ldst, const void* w, con
   unsigned* err = reinterpret_cast<unsigned*>(acc + (op == 1 ? n : 0));
   unsigned* fd = static_cast<unsigned*>(flag_dev);
   volatile unsigned* fh = static_cast<volatile unsigned*>(flag_host);
-  if (fh != nullptr) *fh = kPending;
+  if (fh != nullptr) *fh = hostflag::kPending;
   // The grid: at most the resident CTAs (a cooperative launch), enough for
   // one edge (min) or one tile (sum) a thread or CTA, and one output a thread.
   const long long outs = (n + kThreads - 1) / kThreads;
@@ -203,16 +199,7 @@ int segment_reduce_launch(const void* lsrc, const void* ldst, const void* w, con
   }
   if (e == cudaSuccess) e = cudaGetLastError();
   if (e != cudaSuccess || fh == nullptr) return (int)e;
-  // Spin on the flag; now and then ask the stream, so that a fault (or a
-  // stream that ended without the flag) returns an error, not a hang.
-  for (unsigned spins = 1; *fh == kPending; ++spins) {
-    if (spins % 4096 == 0) {
-      e = cudaStreamQuery(s);
-      if (e == cudaSuccess) return *fh == kPending ? (int)cudaErrorUnknown : 0;
-      if (e != cudaErrorNotReady) return (int)e;
-    }
-  }
-  return 0;
+  return hostflag::wait(fh, s);
 }
 
 }  // extern "C"

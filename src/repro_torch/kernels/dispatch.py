@@ -20,6 +20,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Optional
 
@@ -41,6 +42,7 @@ LAUNCHES: collections.Counter = collections.Counter()
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _FUNCTIONS: dict = {}
+_THREAD = threading.local()
 
 
 def reset_launches() -> None:
@@ -138,6 +140,23 @@ def c_function(name: str, symbol: str, argtypes: list, restype=ctypes.c_int):
         fn.restype = restype
         _FUNCTIONS[name, symbol] = fn
     return fn
+
+
+def host_flag(name: str):
+    """This thread's 4 bytes of mapped pinned host memory for kernel
+    `name`'s error flag (its C entry `<name>_host_flag` allocates them):
+    (host pointer, device pointer, the host's view of it). They stay
+    allocated for the thread's life."""
+    flags = getattr(_THREAD, "flags", None)
+    if flags is None:
+        flags = _THREAD.flags = {}
+    flag = flags.get(name)
+    if flag is None:
+        host, dev = ctypes.c_void_p(), ctypes.c_void_p()
+        fn = c_function(name, f"{name}_host_flag", [ctypes.c_void_p] * 2)
+        check_launch(f"{name}_host_flag", fn(ctypes.byref(host), ctypes.byref(dev)))
+        flag = flags[name] = (host.value, dev.value, ctypes.c_uint32.from_address(host.value))
+    return flag
 
 
 def check_launch(name: str, err: int) -> None:

@@ -24,7 +24,6 @@ returns (the rest of the kernel runs on in stream order).
 from __future__ import annotations
 
 import ctypes
-import threading
 
 import torch
 
@@ -36,11 +35,11 @@ from repro_torch.kernels.dispatch import (
     check_launch,
     check_tensor,
     cuda_stream_handle,
+    host_flag,
 )
 
 OPS = ("min", "sum")
 _COUNTS = {op: f"segment_reduce.{op}" for op in OPS}  # the LAUNCHES keys
-_THREAD = threading.local()
 
 
 def segment_reduce_plain(lsrc, ldst, weight, val, num_out: int, *, op: str = "min"):
@@ -80,24 +79,11 @@ def _check_arguments(lsrc, ldst, weight, val, num_out: int, op: str) -> None:
         raise ValueError(f"segment_reduce runs on CPU or CUDA tensors, got {dev}")
 
 
-def _host_flag():
-    """This thread's 4 bytes of mapped pinned host memory for the kernel's
-    error flag: (host pointer, device pointer, the host's view of it). They
-    stay allocated for the thread's life."""
-    flag = getattr(_THREAD, "flag", None)
-    if flag is None:
-        host, dev = ctypes.c_void_p(), ctypes.c_void_p()
-        fn = c_function("segment_reduce", "segment_reduce_host_flag", [ctypes.c_void_p] * 2)
-        check_launch("segment_reduce_host_flag", fn(ctypes.byref(host), ctypes.byref(dev)))
-        flag = _THREAD.flag = (host.value, dev.value, ctypes.c_uint32.from_address(host.value))
-    return flag
-
-
 def launch_unchecked(lsrc, ldst, weight, val, num_out: int, op: str, flag=None):
     """Launch the kernel on CUDA tensors and return `out`. Given `flag`
-    (`_host_flag()`), the kernel writes its error bits there and the call
-    waits until it has; the result is good only if they read 0, which
-    `segment_reduce` checks. Without it nothing waits and nothing is
+    (`dispatch.host_flag("segment_reduce")`), the kernel writes its error
+    bits there and the call waits until it has; the result is good only if
+    they read 0, which `segment_reduce` checks. Without it nothing waits and nothing is
     checked: that times the kernel without the host read."""
     E, V = lsrc.shape[0], val.shape[0]
     dev = lsrc.device
@@ -125,7 +111,7 @@ def segment_reduce(lsrc, ldst, weight, val, *, num_out: int, op: str = "min"):
     if lsrc.device.type == "cpu":
         check_ids(*ids)
         return segment_reduce_plain(lsrc, ldst, weight, val, num_out, op=op)
-    flag = _host_flag()
+    flag = host_flag("segment_reduce")
     out = launch_unchecked(lsrc, ldst, weight, val, num_out, op, flag)
     bits = flag[2].value
     if bits:

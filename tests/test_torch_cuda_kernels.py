@@ -2,15 +2,16 @@
 `segment_reduce`, `ebg_membership`, `decode_attention` (every head_dim to
 256), `ebg_commit` (also at shapes past the block-wide kernel's shared
 memory) and its two layout transposes against their plain PyTorch versions,
-and the id guards of `segment_reduce` and `bsp_superstep` (marked `cuda`;
-they skip without a card). This file imports neither
+the id guards of `segment_reduce`, `bsp_superstep` and `ebg_membership`, and
+the hash-family partitioners on the card against their CPU path (marked
+`cuda`; they skip without a card). This file imports neither
 jax nor the reference package, so it runs on a machine that has only
 PyTorch:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda_kernels.py
 
 Exact: segment and superstep min and max (values and iteration counts),
-membership, the commit and the transposes.
+membership, the commit, the transposes and the hash family's parts.
 Tolerance: segment and superstep sums rtol 1e-5 / atol 1e-6 (both add in
 f64, atomics in another order); attention 2e-5 in f32 and, in bf16, one
 rounding of the output (rtol 2^-7, atol 1e-5), which a 1 % error fails.
@@ -171,6 +172,73 @@ def test_cuda_ebg_membership_matches_plain(cuda_device):
         got = pt_ops.ebg_membership(bits.to(cuda_device), u.to(cuda_device), v.to(cuda_device))
         torch.cuda.synchronize()
         assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", [1, 31, 32, 33, 64, 2048])
+@pytest.mark.parametrize("E", [0, 1, 5, 4096, 4099])
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "unaligned"])
+def test_cuda_ebg_membership_any_shape(cuda_device, p, E, offset):
+    """The vertex-major kernel at any p (one memb word an endpoint per 32
+    parts), the 16-byte path (E a multiple of 4, aligned), the scalar path
+    (a ragged E, or u and v sliced at offset 1 off 16 bytes); bitwise."""
+    rng = np.random.default_rng(p * 7 + E)
+    V = 3000
+    keep = torch.from_numpy(rng.random((p, V)) < 0.4)
+    bits = pt_ops.pack_keep_bits(keep)
+    ends = [_t(rng.integers(0, V, E + offset).astype(np.int32)) for _ in range(2)]
+    u, v = (x.to(cuda_device)[offset:] for x in ends)
+    got = pt_ops.ebg_membership(bits.to(cuda_device), u, v)
+    torch.cuda.synchronize()
+    want = pt_memb.ebg_membership_plain(bits, *(x[offset:] for x in ends))
+    assert got.shape == (p, E) and torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,bad", [("u", -1), ("u", "32vw"), ("v", -1), ("v", "32vw")])
+def test_cuda_ebg_membership_rejects_out_of_range_ids(cuda_device, monkeypatch, name, bad):
+    """The kernel's id guard: an id outside [0, 32·vw) raises the
+    ValueError of `check_ids`, and the flag is clear on the next call,
+    which checks no ids on the host (no aminmax)."""
+    rng = np.random.default_rng(9)
+    p, vw, E = 33, 20, 4096
+    bits = _t(rng.integers(-2**31, 2**31, (p, vw)).astype(np.int32)).to(cuda_device)
+    ends = {n: _t(rng.integers(0, 32 * vw, E).astype(np.int32)).to(cuda_device)
+            for n in ("u", "v")}
+    args = {n: t.clone() for n, t in ends.items()}
+    args[name][E // 2] = 32 * vw if bad == "32vw" else bad
+    with pytest.raises(ValueError, match=f"{name} has ids"):
+        pt_ops.ebg_membership(bits, args["u"], args["v"])
+    calls = []
+    aminmax = torch.aminmax
+    monkeypatch.setattr(torch, "aminmax", lambda *a, **k: calls.append(1) or aminmax(*a, **k))
+    got = pt_ops.ebg_membership(bits, ends["u"], ends["v"])
+    want = pt_memb.ebg_membership_plain(bits.cpu(), ends["u"].cpu(), ends["v"].cpu())
+    assert not calls
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", [5, 32, 1000])
+@pytest.mark.parametrize("name", ["hash", "dbh", "cvc"])
+def test_cuda_hash_family_matches_cpu(cuda_device, name, p):
+    """hash, DBH and CVC on the card: `part` on the card, bitwise the CPU
+    path's (which the CPU tests hold to the reference), on a power-law
+    graph and, for hash and CVC, on ids up to 2^31 - 1."""
+    from repro_torch.core import PARTITIONERS
+    from repro_torch.graph.generate import rmat
+    from repro_torch.interop import graph_from_numpy
+
+    graphs = [rmat(1 << 12, 1 << 15, seed=3)]
+    if name != "dbh":  # DBH's degrees would take 2^31 counters
+        top = 2**31 - 1
+        ids = np.random.default_rng(1).integers(top - 5000, top + 1, 2000).astype(np.int32)
+        graphs.append(graph_from_numpy(ids, ids[::-1].copy(), 2**31))
+    for g in graphs:
+        got = PARTITIONERS[name](g, p, device=cuda_device)
+        want = PARTITIONERS[name](g, p, device="cpu")
+        assert got.part.device.type == "cuda" and got.part.dtype == torch.int32
+        assert torch.equal(got.part.cpu(), want.part)
 
 
 @pytest.mark.cuda

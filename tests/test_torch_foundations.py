@@ -158,7 +158,8 @@ def test_configs_validate_like_the_reference():
 
 def test_registry_lists_the_streaming_partitioners():
     names = [s.name for s in pt_registry.list_partitioners()]
-    assert names == ["ebg", "ebg_chunked", "hdrf", "greedy"]
+    # The streaming family first, then the paper's baselines, as the reference registers them.
+    assert names == ["ebg", "ebg_chunked", "hdrf", "greedy", "hash", "dbh", "cvc", "ne", "metis"]
     spec = pt_registry.get_partitioner("ebg_chunked")
     assert spec.scorer == "ebv" and spec.chunked
     assert "device" not in spec.accepted_kwargs and "block" in spec.accepted_kwargs

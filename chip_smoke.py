@@ -15,7 +15,9 @@ Phases; a failed check raises and the script exits non-zero:
               bsp_superstep on the CC, REACH (two-level and flat addressing,
               the latter with negative values), SSSP and BFS streams (min,
               bitwise), the PageRank stream and a hub-heavy [p, E] stream
-              (sum, to rtol 1e-5);
+              (sum, to rtol 1e-5); and in one launch over a batch's B·p value
+              rows on the shared streams (BFS, SSSP, PR), against the plain
+              version and against each query's rows launched alone;
               segment_reduce min and max (bitwise) and sum (rtol 1e-5) on
               two workers' CC and PageRank streams and on a hub-heavy
               stream, and the id guards of segment_reduce, of
@@ -32,7 +34,11 @@ Phases; a failed check raises and the script exits non-zero:
               through `kernels.ops`.
   3. pinned   the smoke graph and twitter_like through GraphPipeline on the
               card (p=32, ebg_chunked): every number the JAX reference gives
-              on the CPU, exactly (RF and imbalances to 6 decimals).
+              on the CPU, exactly (RF and imbalances to 6 decimals). On
+              twitter_like each program runs by the fused driver (cold: it
+              captures its CUDA graph; then warm: it captures nothing) and
+              by the host driver: equal values and stats, the host syncs
+              and walls of each logged.
   4. baselines
               the paper's baselines beside ebg_chunked on twitter_like
               (p=32) through GraphPipeline: hash, DBH and CVC partition on
@@ -47,7 +53,17 @@ Phases; a failed check raises and the script exits non-zero:
               SSSP, BFS and PR through GraphPipeline. Kernel launch counts
               are zeroed just before and read just after; the results are
               checked against plain label-propagation / BFS / power-iteration
-              oracles on the card. Then each kernel is held against its plain
+              oracles on the card. Each program runs again by the fused
+              driver (warm) and by the host driver: equal values and stats,
+              walls and host syncs kept. Then the serving tier on the
+              directed build: a synthetic trace of 64 BFS/SSSP point
+              queries (degree-proportional sources, 2,000 queries/s)
+              through GraphPipeline.serve (max_batch 8, buckets 1/2/4/8,
+              every graph captured first), launch counts zeroed just
+              before; every answer against the BFS oracle from its
+              source, the first batch of each program against single
+              host-driver runs, bitwise; one {"serve": ...} stdout line.
+              Then each kernel is held against its plain
               version at these shapes and timed beside its bound, its plain
               version and the nearest single PyTorch call: segment_reduce
               on one worker's CC and PageRank streams, ebg_membership on
@@ -64,7 +80,10 @@ Phases; a failed check raises and the script exits non-zero:
               (the workspace path: frozen and window, bitwise against the
               plain version, on the smoke graph). bsp_superstep.min's
               entry carries the share of the stream's edges that took part
-              in each pass (the frontier). decode_attention is also timed
+              in each pass (the frontier), and the serving path's batched
+              launch (8 BFS queries' first superstep, B·p value rows)
+              against its rows launched alone, bitwise, timed beside the 8
+              single launches. decode_attention is also timed
               at kimi_k2's attention widths (head_dim 112). ebg_membership's
               entry carries its main kernel's time (kernel_ms) and its
               transpose's (transpose_ms) beside the whole call. Last, hash,
@@ -72,7 +91,7 @@ Phases; a failed check raises and the script exits non-zero:
               bitwise against a numpy splitmix64 written here, with their
               edges per second and metrics.
 
-Prints the card's name and power limit, the {"kernels": [...]} line, and last
+Prints the card's name and power limit, the {"serve": ...} and {"kernels": [...]} lines, and last
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 It needs the repository around it and a CUDA card; without either it fails.
 """
@@ -154,6 +173,11 @@ PINNED_BASELINES = {
     "metis": (("3.354389", "20.466453", "7.109937"), (3, 328_897)),
 }
 HASH_FAMILY = ("hash", "dbh", "cvc")  # the baselines that run on the card
+# The serving replay at full width: graph_serve's defaults (rate, mix,
+# max_batch 8, buckets 1/2/4/8) on 64 degree-proportional point queries.
+SERVE = dict(queries=64, rate_qps=2000.0, mix=(("bfs", 0.5), ("sssp", 0.5)), seed=0,
+             max_batch=8)
+BATCH_B = 8  # the batched superstep launch timed at full width (BFS)
 
 
 def log(msg: str) -> None:
@@ -316,6 +340,35 @@ def compare_superstep(sub, prog, num_vertices, source=0):
         check(torch.allclose(got[0], want[0], rtol=SUM_RTOL, atol=SUM_ATOL),
               f"bsp_superstep {prog}: sum values differ beyond rtol {SUM_RTOL}")
     return (lsrc, ldst, w, deg), val, n, got, err
+
+
+def compare_superstep_batch(sub, prog, num_vertices, sources):
+    """The first superstep's local stage of len(sources) queries of `prog`
+    in one launch over B·p value rows on the shared streams: against the
+    plain version on the same inputs (min bitwise, sum to rtol) and each
+    query's rows against the same rows launched alone (bitwise). Returns
+    (inputs, values, num_out, kernel result, each query's values)."""
+    from repro_torch.graph import engine
+    from repro_torch.kernels import bsp_superstep as bsp
+
+    (lsrc, ldst, w, deg), val, n = engine.kernel_inputs(sub, prog, num_vertices=num_vertices,
+                                                        source=list(sources))
+    p = lsrc.shape[0]
+    combine = "sum" if deg is not None else "min"
+    kw = dict(num_out=n, combine=combine, inner_cap=10_000, out_degree=deg)
+    got = bsp.bsp_superstep(lsrc, ldst, w, val, **kw)
+    want = bsp.bsp_superstep_plain(lsrc, ldst, w, val, **kw)
+    check(torch.equal(got[1], want[1]), f"bsp_superstep batch {prog}: iteration counts differ")
+    check(torch.equal(got[0], want[0]) if combine == "min" else
+          torch.allclose(got[0], want[0], rtol=SUM_RTOL, atol=SUM_ATOL),
+          f"bsp_superstep batch {prog}: values differ from the plain version")
+    rows = [val[b * p:(b + 1) * p].clone() for b in range(len(sources))]
+    for b, v in enumerate(rows):
+        alone = bsp.bsp_superstep(lsrc, ldst, w, v, **kw)
+        check(torch.equal(alone[0], got[0][b * p:(b + 1) * p])
+              and torch.equal(alone[1], got[1][b * p:(b + 1) * p]),
+              f"bsp_superstep batch {prog}: query {b} differs from its rows launched alone")
+    return (lsrc, ldst, w, deg), val, n, got, rows
 
 
 def compare_segment(op, lsrc, ldst, w, val, n):
@@ -594,6 +647,10 @@ def phase_kernels(dev):
     check(np.array_equal(alg.scatter_to_global(flat, vals, g.num_vertices), two.to_global()),
           "flat REACH labels differ from two-level")
     errs["pr/hub"] = compare_bsp_sum_hub(dev)
+    # One launch over a batch's B·p value rows on the shared streams.
+    for prog, sub, sources in (("bfs", dirn, [0, 5, 17]), ("sssp", dirn, [3, 0]),
+                               ("pr", dirn, [None, None])):
+        compare_superstep_batch(sub, prog, g.num_vertices, sources)
     log(f"kernels: bsp_superstep == plain on the smoke streams and a hub stream; "
         f"max |err| {errs}")
     errs.update(phase_new_kernels(g, pipe, sym, dirn, dev))
@@ -604,11 +661,55 @@ def phase_kernels(dev):
     return errs
 
 
+def same_run(a, b) -> bool:
+    """Two runs (PipelineRuns, QueryResults) with equal values and every
+    BSPStats field equal."""
+    fields = ("messages_per_worker", "messages_per_step", "messages_per_step_worker",
+              "inner_iters_per_step", "comp_work_per_worker")
+    return (np.array_equal(a.values, b.values) and a.stats.supersteps == b.stats.supersteps
+            and all(np.array_equal(getattr(a.stats, f), getattr(b.stats, f)) for f in fields))
+
+
+def timed_run(pipe, prog, driver):
+    """(run, wall s, host syncs) of one pipe.run, ended by a synchronize."""
+    from repro_torch.graph import engine
+
+    sync()
+    syncs = engine.HOST_SYNCS[driver]
+    t = time.perf_counter()
+    r = pipe.run(prog, driver=driver)
+    sync()
+    return r, time.perf_counter() - t, engine.HOST_SYNCS[driver] - syncs
+
+
+def compare_drivers(pipe, runs, label):
+    """Each program's run by the fused driver (cold: `runs`, the first run,
+    which captured its graph) again warm and by the host driver: values
+    and every stat equal to the cold run's; the warm run captures nothing.
+    Returns {program: walls and host syncs}."""
+    from repro_torch.graph import engine
+
+    out = {}
+    for prog, cold in runs.items():
+        captures = dict(engine.CAPTURES)
+        warm, warm_s, warm_syncs = timed_run(pipe, prog, "fused")
+        check(dict(engine.CAPTURES) == captures, f"{label} {prog}: a warm fused run captured")
+        host, host_s, host_syncs = timed_run(pipe, prog, "host")
+        check(same_run(warm, cold), f"{label} {prog}: warm fused run differs from the cold one")
+        check(same_run(host, cold), f"{label} {prog}: host driver differs from the fused one")
+        out[prog] = dict(supersteps=cold.stats.supersteps, fused_warm_s=warm_s,
+                         fused_syncs=warm_syncs, host_s=host_s, host_syncs=host_syncs)
+        log(f"drivers {label} {prog}: {cold.stats.supersteps} supersteps; fused (warm) "
+            f"{warm_s * 1e3:.2f} ms, {warm_syncs} host syncs; host {host_s * 1e3:.2f} ms, "
+            f"{host_syncs} host syncs; equal values and stats")
+    return out
+
+
 def phase_pinned(dev):
     from repro_torch.api.pipeline import GraphPipeline
     from repro_torch.graph.generate import make_graph, rmat
 
-    times = {}
+    times, drivers = {}, {}
     for name, pin in PINNED.items():
         t = time.perf_counter()
         g = rmat(**SMOKE) if name == "smoke" else make_graph(name)
@@ -619,15 +720,24 @@ def phase_pinned(dev):
                                          m.vertex_imbalance))
         check(got == pin["metrics"], f"{name}: metrics {got} != {pin['metrics']}")
         check(pipe.default_source() == 0, f"{name}: default source")
+        runs = {}
         for prog in PROGRAMS:
-            r = pipe.run(prog)
+            r, cold_s, cold_syncs = timed_run(pipe, prog, "fused")
             got = (r.stats.supersteps, r.stats.total_messages)
             check(got == pin["runs"][prog], f"{name} {prog}: {got} != {pin['runs'][prog]}")
             if prog == "cc":
                 check(r.num_components() == pin["components"], f"{name}: CC components")
+            runs[prog] = r
+            if name == "twitter_like":
+                drivers[prog] = dict(fused_cold_s=cold_s, fused_cold_syncs=cold_syncs)
+        if name == "twitter_like":
+            # The host driver gives the pinned numbers too: its runs equal
+            # the fused driver's (compare_drivers).
+            for prog, row in compare_drivers(pipe, runs, name).items():
+                drivers[prog].update(row)
         times[name] = time.perf_counter() - t
         log(f"pinned: {name} matches the reference ({times[name]:.1f} s)")
-    return times
+    return times, drivers
 
 
 # ------------------------------------------------------ the paper's baselines
@@ -862,8 +972,17 @@ def phase_full(dev, log2_edges):
     log(f"full: CC {components} components == label propagation; REACH, BFS, SSSP, PR "
         f"agree with their oracles ({st.s['oracles']:.1f} s)")
 
+    t = time.perf_counter()
+    drivers = compare_drivers(pipe, runs, "full")
+    for prog, row in drivers.items():
+        row["fused_cold_s"] = st.s[f"run_{prog}"]
+    st.s["drivers"] = time.perf_counter() - t
+    serve, batch_sources = phase_serve(g, pipe, dev)
+    st.s["serve"] = serve["phase_s"]
+
     summary = dict(
         vertices=V, edges=g.num_edges, parts=PARTS, stage_s=st.s, launches=launches,
+        drivers=drivers, serve=serve,
         metrics=dict(replication_factor=m.replication_factor, edge_imbalance=m.edge_imbalance,
                      vertex_imbalance=m.vertex_imbalance),
         components=components, source=source,
@@ -872,17 +991,101 @@ def phase_full(dev, log2_edges):
                       inner_iters=r.stats.inner_iters_per_step.sum(axis=1).tolist())
               for p, r in runs.items()},
     )
-    kernels = measure_kernels(g, pipe, runs, launches, dev)
+    kernels = measure_kernels(g, pipe, runs, launches, dev, batch_sources, serve["launches"])
     summary["hash_family"] = measure_hash_family(g, dev)
     return summary, kernels
+
+
+def phase_serve(g, pipe, dev):
+    """The serving tier at full width on the main path's directed build:
+    a synthetic trace of point queries through GraphPipeline.serve (warm
+    first: every (program, bucket) graph captured), launch counts zeroed
+    just before and read just after. Every answer against the BFS oracle
+    from its source; the first batch of each program against single runs
+    of the host driver, values and stats bitwise. Returns (the report row
+    with the capture seconds and launches, the first BATCH_B BFS sources)."""
+    from repro_torch.graph import algorithms as alg
+    from repro_torch.kernels import dispatch
+    from repro_torch.serve.trace import synthetic_trace
+
+    t0 = time.perf_counter()
+    V = g.num_vertices
+    trace = synthetic_trace(g, SERVE["queries"], rate_qps=SERVE["rate_qps"], mix=SERVE["mix"],
+                            seed=SERVE["seed"])
+    trace_s = time.perf_counter() - t0
+    server = pipe.serve(max_batch=SERVE["max_batch"])
+    check(server.buckets == (1, 2, 4, 8), f"serve buckets {server.buckets}")
+    dispatch.reset_launches()
+    sync()
+    t = time.perf_counter()
+    report = server.run_trace(trace)
+    sync()
+    replay_s = time.perf_counter() - t
+    launches = dict(dispatch.LAUNCHES)
+    check(launches.get("bsp_superstep.min", 0) > 0, "the serving path launched no min kernel")
+    row = report.row()
+    check(row["resilience"]["answered"] == SERVE["queries"], f"serve: {row['resilience']}")
+    log(f"serve: {SERVE['queries']} queries in {row['batches']} batches (mean "
+        f"{row['mean_batch']}), p50 {row['latency_p50_s']} s, p99 {row['latency_p99_s']} s, "
+        f"captures {server.cache.compile_s:.2f} s; launches {launches}")
+
+    # Every answer against the oracle from its source.
+    t = time.perf_counter()
+    sub = pipe.subgraphs_for(symmetrize=False)
+    src = g.src.to(dev).long()
+    dst = g.dst.to(dev).long()
+    cov = g.covered_vertices()
+    hops = {}
+    results = [server.result(q) for q in range(SERVE["queries"])]
+    for r in results:
+        check(r.ok, f"serve: query {r.qid} failed")
+        if r.source not in hops:
+            hops[r.source] = oracle_hops(src, dst, V, r.source).cpu().numpy()[cov]
+        want = hops[r.source]
+        if r.program == "sssp":
+            want = np.where(want == INF_I32, np.float32(3.0e38), want.astype(np.float32))
+        check(np.array_equal(alg.scatter_to_global(sub, r.values, V)[cov], want),
+              f"serve: query {r.qid} ({r.program} from {r.source}) differs from the oracle")
+    del src, dst
+    oracle_s = time.perf_counter() - t
+    # The first batch of each program against single host-driver runs, and
+    # its wall against the same queries' single fused runs (warm).
+    t = time.perf_counter()
+    first = {}
+    for prog in ("bfs", "sssp"):
+        mine = [r for r in results if r.program == prog]
+        batch_wall = next(w for name, _, _, w in server._batch_log if name == prog)
+        fused_s = 0.0
+        for r in mine[:mine[0].batch]:
+            check(same_run(r, pipe.run(prog, source=r.source, driver="host")),
+                  f"serve: {prog} from {r.source} differs from its single host-driver run")
+            sync()
+            t1 = time.perf_counter()
+            pipe.run(prog, source=r.source)
+            sync()
+            fused_s += time.perf_counter() - t1
+        first[prog] = dict(queries=mine[0].batch, bucket=mine[0].bucket, batch_wall_s=batch_wall,
+                           singles_fused_s=fused_s)
+    singles_s = time.perf_counter() - t
+    log(f"serve: all {len(results)} answers == the oracle ({oracle_s:.1f} s); the first batch "
+        f"of each program == single host-driver runs; batch wall against the same queries' "
+        f"single fused runs {first} ({singles_s:.1f} s)")
+    bfs_sources = [r.source for r in results if r.program == "bfs"][:BATCH_B]
+    out = dict(row, capture_s=server.cache.compile_s, trace_s=trace_s, replay_s=replay_s,
+               oracle_s=oracle_s, singles_s=singles_s, first_batch=first, launches=launches,
+               batch_log=[dict(program=n, queries=q, bucket=b, wall_s=w)
+                          for n, q, b, w in server._batch_log],
+               phase_s=time.perf_counter() - t0)
+    return out, bfs_sources
 
 
 # -------------------------------------- full width: kernels at their shapes
 
 
-def measure_kernels(g, pipe, runs, launches, dev):
+def measure_kernels(g, pipe, runs, launches, dev, batch_sources, serve_launches):
     """Each kernel against its plain version at the main path's shapes,
-    timed beside its bound, the plain version and the library call."""
+    timed beside its bound, the plain version and the library call; the
+    superstep's min also in the serving path's batched launch."""
     from repro_torch.kernels import bsp_superstep as bsp, ebg_commit as ebg
 
     B = 256
@@ -986,6 +1189,9 @@ def measure_kernels(g, pipe, runs, launches, dev):
             **extra,
         ))
         check(int(flag) == 0, f"bsp_superstep {prog}: the id guard fired on the main path's stream")
+        entries[-1]["serve_launches"] = serve_launches.get(f"bsp_superstep.{combine}", 0)
+        if combine == "min":
+            entries[-1].update(measure_superstep_batch(pipe, batch_sources, g.num_vertices, dev))
         del data, scratch, idx
         segment_entries.append(measure_segment(prog, lsrc[0], ldst[0], w[0],
                                                val[0] if deg is None else pr_share(val, deg)[0],
@@ -1003,6 +1209,42 @@ def measure_kernels(g, pipe, runs, launches, dev):
             f"{e['plain_ms']:.3f} ms, bound {e['bound_ms']:.4f} ms by {e['bound_by']}, "
             f"x{e['ms_over_bound']:.2f}; library {e['library_ms']})")
     return entries
+
+
+def measure_superstep_batch(pipe, sources, num_vertices, dev):
+    """bsp_superstep's min as the serving path launches it: the first
+    superstep of B BFS queries over the directed build in one launch of
+    B·p value rows on the shared streams. Bitwise against the plain version
+    and against each query's rows launched alone; timed beside the B single
+    launches and its bound (the stream read once, B·p value rows in and
+    out)."""
+    from repro_torch.kernels import bsp_superstep as bsp
+
+    sub = pipe.subgraphs_for(symmetrize=False)
+    B = len(sources)
+    (lsrc, ldst, w, _), val, n, got, rows = compare_superstep_batch(sub, "bfs", num_vertices,
+                                                                    sources)
+    p, E = lsrc.shape
+    kw = dict(num_out=n, combine="min", inner_cap=10_000)
+    flag = torch.zeros((1,), dtype=torch.int32, device=dev)
+    batch_ms = cuda_ms(lambda: bsp.launch_flagged(lsrc, ldst, w, val, err=flag, **kw), reps=3)
+    singles_ms = [cuda_ms(lambda v=v: bsp.launch_flagged(lsrc, ldst, w, v, err=flag, **kw),
+                          reps=3) for v in rows]
+    check(int(flag) == 0, "bsp_superstep batch: the id guard fired")
+    passes = int((got[1] + 1).clamp(max=10_000).sum())
+    io_bytes = nbytes(lsrc, ldst, w, val) + nbytes(*got)
+    ops = 2.0 * passes * E
+    bound = max(io_bytes / HBM_BYTES_PER_S, ops / F32_FLOPS)
+    log(f"kernel bsp_superstep.min batch B={B}: {batch_ms:.3f} ms against {sum(singles_ms):.3f} "
+        f"ms for the {B} single launches; bound {1e3 * bound:.4f} ms")
+    return dict(batch_B=B, batch_ms=batch_ms, batch_singles_ms=sum(singles_ms),
+                batch_single_ms=singles_ms, batch_bound_ms=1e3 * bound,
+                batch_bound_by="bytes" if io_bytes / HBM_BYTES_PER_S >= ops / F32_FLOPS
+                else "operations",
+                batch_max_abs_err=0.0,  # bitwise, checked above
+                batch_worker_passes=passes,
+                batch_shape=f"bfs first superstep, {B} queries: stream [{p}, {E}], "
+                            f"values [{B * p}, {n}]")
 
 
 def measure_segment(prog, lsrc, ldst, w, val, n, launches):
@@ -1204,7 +1446,7 @@ def main(argv=None) -> int:
 
     build_s = phase_build()
     smoke_errs = phase_kernels(dev)
-    pinned_s = phase_pinned(dev)
+    pinned_s, pinned_drivers = phase_pinned(dev)
     t = time.perf_counter()
     baselines = phase_baselines(dev)
     baselines_s = time.perf_counter() - t
@@ -1213,12 +1455,17 @@ def main(argv=None) -> int:
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(dict(
         card=smi, build_s=build_s, smoke_kernel_errors=smoke_errs, pinned_s=pinned_s,
+        pinned_drivers=pinned_drivers,
         baselines=baselines, baselines_s=baselines_s, full=summary, kernels=kernels,
         total_s=total,
     ), indent=1))
     log(f"all phases passed in {total:.1f} s")
 
     print(smi)
+    serve = summary["serve"]
+    print(json.dumps({"serve": {k: serve[k] for k in (
+        "queries", "wall_s", "throughput_qps", "latency_p50_s", "latency_p99_s", "batches",
+        "mean_batch", "padding_waste", "supersteps_mean", "cache", "resilience", "capture_s")}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                               "kind": torch.cuda.get_device_name(0),

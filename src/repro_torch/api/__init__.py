@@ -21,7 +21,7 @@ from repro_torch.api.registry import (
     register_partitioner,
 )
 
-_LAZY = ("GraphPipeline", "PipelineRun")
+_LAZY = ("BatchRun", "GraphPipeline", "PipelineRun")
 
 
 def __getattr__(name):

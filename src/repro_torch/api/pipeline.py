@@ -26,7 +26,13 @@ from repro_torch.core.metrics import PartitionMetrics, partition_metrics
 from repro_torch.core.types import Graph, PartitionResult, as_numpy
 from repro_torch.graph import algorithms as alg
 from repro_torch.graph.build import SubgraphSet, build_subgraphs
-from repro_torch.graph.engine import BSPStats, VertexProgram, get_program
+from repro_torch.graph.engine import (
+    BSPStats,
+    VertexProgram,
+    check_driver,
+    get_program,
+    run_bsp_batch,
+)
 from repro_torch.kernels.dispatch import resolve_device
 
 ProgramLike = Union[str, VertexProgram]
@@ -199,13 +205,17 @@ class GraphPipeline:
         symmetrize: Optional[bool] = None,
         pad_multiple: Optional[int] = None,
         source: Optional[int] = None,
+        driver: Optional[str] = None,
         **kw,
     ) -> "PipelineRun":
         """Execute any registered program over the partitioned graph and
         collect stats. Only mode="sim" (all workers batched on one device)
-        is ported. Extra kwargs flow to `run_bsp` (max_supersteps,
-        inner_cap, exchange_period, tol, block_e, num_iters — the PageRank
-        alias of max_supersteps — and damping)."""
+        is ported. `driver` selects the step loop ("fused", the default, or
+        "host"; identical values and stats). Extra kwargs flow to `run_bsp`
+        (max_supersteps, inner_cap, exchange_period, tol, block_e,
+        num_iters — the PageRank alias of max_supersteps — and damping)."""
+        if driver is not None:
+            kw["driver"] = check_driver(driver)
         if mode != "sim":
             raise ValueError(f"mode {mode!r} is not ported; the port runs mode='sim'")
         prog = _resolve_program(program)
@@ -217,6 +227,51 @@ class GraphPipeline:
         )
         return PipelineRun(pipeline=self, program=prog.name, values=values, stats=stats,
                            subgraphs=sub)
+
+    def run_batch(
+        self,
+        program: ProgramLike = "cc",
+        sources=None,
+        *,
+        batch: Optional[int] = None,
+        symmetrize: Optional[bool] = None,
+        pad_multiple: Optional[int] = None,
+        **kw,
+    ) -> "BatchRun":
+        """Run a [B] batch of point queries of ONE program in a single
+        fused loop over the shared subgraph structure.
+
+        Source-rooted programs (SSSP/BFS) take `sources` — a [B] sequence
+        of vertex ids, each validated before anything runs; source-free
+        programs take `batch` (B identical whole-graph queries). Each
+        query's values and `BSPStats` are bit-identical to a one-source
+        `.run` call: convergence masking freezes finished queries while
+        stragglers run, and per-query stats report the supersteps that
+        query actually paid. For a persistent admission-queue/cache
+        serving loop over the same machinery, use `.serve()`.
+        """
+        prog = _resolve_program(program)
+        prog, kw = _translate_engine_kwargs(prog, kw)
+        sub = self.subgraphs_for(**self._build_params_for(prog, symmetrize, pad_multiple))
+        vals, stats = run_bsp_batch(
+            sub, prog, sources, batch=batch, num_vertices=self.graph.num_vertices, **kw
+        )
+        return BatchRun(
+            pipeline=self,
+            program=prog.name,
+            values=as_numpy(vals[:, :, :-1]),
+            stats=stats,
+            subgraphs=sub,
+            sources=tuple(int(s) for s in sources) if sources is not None else None,
+        )
+
+    def serve(self, **server_kwargs) -> "GraphQueryServer":
+        """Open a persistent query server over this pipeline's
+        partitioned graph (admission queue, micro-batching, warm captured
+        executables — see `repro_torch.serve.GraphQueryServer`)."""
+        from repro_torch.serve import GraphQueryServer
+
+        return GraphQueryServer(self, **server_kwargs)
 
 
 @dataclasses.dataclass
@@ -247,3 +302,32 @@ class PipelineRun:
         """Distinct CC labels over covered vertices."""
         cov = self.pipeline.graph.covered_vertices()
         return int(np.unique(self.to_global()[cov]).shape[0])
+
+
+@dataclasses.dataclass
+class BatchRun:
+    """Result of one `GraphPipeline.run_batch`: [B] queries of one program
+    answered in one fused loop. `query(i)` views query i as a normal
+    `PipelineRun` (same `.to_global()`, `.stats`, ... surface)."""
+
+    pipeline: GraphPipeline
+    program: str
+    values: np.ndarray  # [B, p, max_v]
+    stats: list  # [B] per-query BSPStats (each query's OWN supersteps)
+    subgraphs: SubgraphSet
+    sources: Optional[tuple]
+
+    def __len__(self) -> int:
+        return self.values.shape[0]
+
+    def query(self, i: int) -> PipelineRun:
+        return PipelineRun(
+            pipeline=self.pipeline, program=self.program,
+            values=self.values[i], stats=self.stats[i], subgraphs=self.subgraphs,
+        )
+
+    @property
+    def supersteps_per_query(self) -> np.ndarray:
+        """Supersteps each query actually paid under convergence masking
+        (NOT B copies of the batch max)."""
+        return np.asarray([s.supersteps for s in self.stats])

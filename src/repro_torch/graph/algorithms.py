@@ -1,9 +1,11 @@
 """The benchmark algorithms on the BSP engine (port of
 `repro.graph.algorithms`; the numpy host oracles stay with the reference).
 
-Every algorithm is a `VertexProgram` executed by the one generic engine
-driver (`repro_torch.graph.engine.run_bsp`); the named wrappers fix the
-program and strip the dump slot. Values come back as host numpy arrays.
+Every algorithm is a `VertexProgram` executed by the generic engine
+(`repro_torch.graph.engine.run_bsp`); the named wrappers fix the program
+and strip the dump slot, and pass every engine keyword through, `driver=`
+("fused", the default, or "host") among them. Values come back as host
+numpy arrays.
 """
 from __future__ import annotations
 

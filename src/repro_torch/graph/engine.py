@@ -8,13 +8,33 @@ One subgraph == one worker. A superstep is
                 (PageRank), both through the `bsp_superstep` kernel;
   2. exchange:  mirror→master reduction then master→mirror broadcast over
                 fixed padded tables (in simulation all p workers live on one
-                device as a leading batch axis, so the exchange is a
-                transpose);
+                device as an axis, so the exchange is a transpose);
   3. barrier:   the end of the step.
 
-Every algorithm is a `VertexProgram`; ONE generic superstep body and ONE
-driver loop run any of them. CC, SSSP, PageRank, BFS and max-label
-reachability are the stock instances in `PROGRAMS`.
+Every algorithm is a `VertexProgram`; ONE generic superstep body runs any
+of them over a batch of B queries, values [B, p, max_v+1] (a single run is
+B = 1; the kernel runs the B·p value rows on the p shared edge streams).
+CC, SSSP, PageRank, BFS and max-label reachability are the stock
+instances in `PROGRAMS`.
+
+Two single-query drivers (`DRIVERS`), bit for bit equal in values and
+every `BSPStats` field:
+  - "fused" (the default): the value carry, the step counters, the
+    per-step [max_supersteps + 1, B, p] message and iteration buffers and
+    the convergence flags stay on the device; a chunk of K = `FUSED_CHUNK`
+    supersteps (raised to a multiple of the exchange period, so each
+    step's exchange is static) runs masked — a finished query keeps its
+    values, counts no step and writes its stats into the spare last row —
+    and the host reads the stop flag once a chunk. On the card the chunk
+    is one CUDA graph, captured after one eager chunk and cached per
+    (SubgraphSet, exec program, knobs, batch): a warm run captures
+    nothing. On the CPU the same chunk runs eagerly.
+  - "host": one superstep per Python iteration and one host sync per
+    superstep for the convergence flag.
+The batched driver (`run_bsp_batch`, `BatchExecutable`) is the fused loop
+over B queries with per-query masking, so each query's stats are its own
+run's. `DISPATCH_COUNTS` counts runs ("fused", "batch") and host
+supersteps ("host"); `HOST_SYNCS` counts the host syncs of each.
 
 Messages are counted with delta semantics for semiring programs (a
 mirror/master "sends" only if its value changed since the last exchange —
@@ -28,7 +48,11 @@ run as min over negated values. Both remaps are made once per run.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
+import gc
+import time
+import weakref
 from typing import Callable, Optional
 
 import numpy as np
@@ -36,11 +60,39 @@ import torch
 
 from repro_torch.core.metrics import max_mean_ratio
 from repro_torch.graph.build import SubgraphSet, check_addressing
-from repro_torch.kernels import ops
+from repro_torch.kernels import dispatch, ops
 from repro_torch.kernels.bsp_superstep import check_flag
 
 INF_F32 = 3.0e38  # the f32 "unreached" value (the kernels' min identity)
 INF_I32 = 2**31 - 1  # the int32 "unreached" value
+
+# The single-query drivers: "fused" keeps the loop's state on the device
+# and runs chunks of supersteps (a CUDA graph on the card); "host" runs one
+# superstep per Python iteration (the readable reference of the loop).
+DRIVERS = ("fused", "host")
+
+# Runs by driver: "fused" and "batch" add 1 a run, "host" 1 a superstep.
+DISPATCH_COUNTS: collections.Counter = collections.Counter()
+# Host syncs by driver ("fused", "host", "batch"): flag reads and the
+# stats' read at the end of a run.
+HOST_SYNCS: collections.Counter = collections.Counter()
+# Fused loops built ("loops") and CUDA graphs captured ("graphs"); a warm
+# run adds to neither.
+CAPTURES: collections.Counter = collections.Counter()
+
+# Supersteps a fused chunk runs between two reads of the stop flag, raised
+# to a multiple of the exchange period. A run makes ceil(steps / K) flag
+# reads; once converged, the rest of its last chunk is masked steps, each
+# a kernel launch that runs no pass and one exchange's tensor ops. On an
+# H100 a masked step costs ~1.1 ms at chip_smoke.py's full width and a flag
+# read ~0.03 ms (PERF.md §6), so K is short.
+FUSED_CHUNK = 2
+
+
+def check_driver(driver) -> str:
+    if driver not in DRIVERS:
+        raise ValueError(f"driver must be one of {DRIVERS}, got {driver!r}")
+    return driver
 
 
 @dataclasses.dataclass
@@ -144,11 +196,14 @@ class VertexProgram:
 
 
 def _exec_view(prog: VertexProgram) -> tuple[VertexProgram, bool]:
-    """The semiring actually executed: max-combine programs run as min over
-    negated values; everything else runs as-is. Returns (program, negate?)."""
-    if prog.combine != "max":
-        return prog, False
-    return dataclasses.replace(prog, combine="min"), True
+    """The program actually executed: max-combine programs run as min over
+    negated values, and int32 programs on an f32 view of their values (the
+    kernels compute in f32). Returns (program, negate?)."""
+    negate = prog.combine == "max"
+    changes = dict(combine="min") if negate else {}
+    if prog.dtype == "int32":
+        changes["dtype"] = "float32"
+    return (dataclasses.replace(prog, **changes) if changes else prog), negate
 
 
 # --------------------------------------------------------- program registry
@@ -201,9 +256,9 @@ def check_source(sub: SubgraphSet, source, num_vertices: int = 0) -> int:
 
 
 def _with_dump(val: torch.Tensor, fill) -> torch.Tensor:
-    """Append the dump slot column (index max_v) holding `fill`."""
-    dump = torch.full((val.shape[0], 1), fill, dtype=val.dtype, device=val.device)
-    return torch.cat([val, dump], dim=1)
+    """Append the dump slot (index max_v of the last axis) holding `fill`."""
+    dump = torch.full((*val.shape[:-1], 1), fill, dtype=val.dtype, device=val.device)
+    return torch.cat([val, dump], dim=-1)
 
 
 def init_cc(sub: SubgraphSet, *, num_vertices: int = 0, source=None) -> torch.Tensor:
@@ -278,17 +333,32 @@ REACH = register_program(VertexProgram(
 
 
 def _gather_rows(val: torch.Tensor, idx: torch.Tensor, shape) -> torch.Tensor:
-    """val: [p, max_v+1]; idx: [p, p*m] int64 → out[i, j, m] = val[i, idx[i, j*m]]."""
-    return torch.gather(val, 1, idx).reshape(shape)
+    """val: [B, p, max_v+1]; idx: [p, p*m] int64 →
+    out[b, i, j, m] = val[b, i, idx[i, j*m]] (the index expanded, not copied)."""
+    B = val.shape[0]
+    return torch.gather(val, 2, idx.expand(B, *idx.shape)).reshape(B, *shape)
 
 
 def _scatter(val: torch.Tensor, idx: torch.Tensor, upd: torch.Tensor, reduce: str) -> torch.Tensor:
-    """out[i, idx[i,k]] combined with upd[i, k] ("amin" | "sum" | "set");
-    idx: [p, p*m] int64, upd: [p, p, m]."""
+    """out[b, j, idx[j, i*m]] combined with upd[b, j, i, m] ("amin" | "sum" |
+    "set"); idx: [p, p*m] int64 (expanded over the batch, not copied), upd:
+    [B, p, p, m]. "sum" adds one sender i at a time, in sender order: within
+    a sender a destination occurs once (pads hit the dump slot with 0), so
+    no two adds race and the f32 sums are the same on every run and every
+    device (a single scatter-add on the card adds in the atomics' order)."""
+    B = val.shape[0]
+    if reduce == "sum":
+        p = idx.shape[0]
+        idx = idx.reshape(p, p, -1)
+        out = val.clone()
+        for i in range(p):
+            out.scatter_add_(2, idx[:, i].expand(B, *idx[:, i].shape), upd[:, :, i])
+        return out
+    idx = idx.expand(B, *idx.shape)
     upd = upd.reshape(idx.shape)
     if reduce == "set":
-        return val.scatter(1, idx, upd)
-    return val.scatter_reduce(1, idx, upd, reduce, include_self=True)
+        return val.scatter(2, idx, upd)
+    return val.scatter_reduce(2, idx, upd, reduce, include_self=True)
 
 
 # -------------------------------------------------- local compute (stage 1)
@@ -326,12 +396,12 @@ def _relax_stream(prog: VertexProgram, sub: SubgraphSet):
 
 @dataclasses.dataclass(frozen=True)
 class _RunPlan:
-    """The run-invariant inputs of a superstep, made once per run: the local
-    stage's edge stream (padded to `block_e` at the dump slot) and, for
-    sweeps, the out-degree with the dump slot's 1 appended; and the exchange
-    tables as the int64 indices that gather/scatter take; and the device
-    flag that the run's superstep launches OR their id guard's bits into,
-    read with the syncs the run makes anyway (`run_bsp`)."""
+    """The run-invariant inputs of a superstep: the local stage's edge
+    stream (padded to `block_e` at the dump slot) and, for sweeps, the
+    out-degree with the dump slot's 1 appended; and the exchange tables as
+    the int64 indices that gather/scatter take; and the device flag that
+    the superstep launches OR their id guard's bits into, zeroed at the
+    start of a run and read with the syncs the run makes anyway."""
 
     lsrc: torch.Tensor
     ldst: torch.Tensor
@@ -342,7 +412,7 @@ class _RunPlan:
     send_idx: torch.Tensor  # [p, p*max_msg] int64
     recv_idx: torch.Tensor  # [p, p*max_msg] int64
     bcast_idx: torch.Tensor  # [p, p*max_msg] int64: send_idx, dump slot where unmasked
-    err: torch.Tensor  # [1] int32, zeroed once a run
+    err: torch.Tensor  # [1] int32
 
 
 def _run_plan(prog: VertexProgram, sub: SubgraphSet, block_e: int) -> _RunPlan:
@@ -369,25 +439,51 @@ def _run_plan(prog: VertexProgram, sub: SubgraphSet, block_e: int) -> _RunPlan:
     )
 
 
-def _local_fixpoint(plan: _RunPlan, val: torch.Tensor, inner_cap: int):
-    """Batched local fixpoint on the f32 exec values [p, max_v+1] (last slot
-    = dump): every relaxation pass and the per-worker convergence flag in
-    one kernel launch (its ids' flag left in plan.err). Returns (values,
-    per-worker inner iterations)."""
-    return ops.bsp_superstep(
-        plan.lsrc, plan.ldst, plan.weight, val, num_out=plan.num_out, combine="min",
-        inner_cap=inner_cap, block_e=plan.block_e, err=plan.err,
+def _sub_cache(sub: SubgraphSet) -> dict:
+    """Per-SubgraphSet cache of run plans and fused loops; it lives as long
+    as the set (entries pin device memory: the streams and the loops'
+    state)."""
+    cache = sub.__dict__.get("_engine_cache")
+    if cache is None:
+        cache = {}
+        object.__setattr__(sub, "_engine_cache", cache)
+    return cache
+
+
+def _plan_for(prog: VertexProgram, sub: SubgraphSet, block_e: int) -> _RunPlan:
+    """The cached run plan of an exec program: programs with the same
+    local stage and edge semiring (CC and REACH; SSSP and BFS differ in
+    weights) share one stream."""
+    key = ("plan", prog.local, prog.weight, prog.bidirectional, int(block_e))
+    cache = _sub_cache(sub)
+    if key not in cache:
+        cache[key] = _run_plan(prog, sub, block_e)
+    return cache[key]
+
+
+def _local_fixpoint(plan: _RunPlan, val: torch.Tensor, inner_cap: int, live=None):
+    """Batched local fixpoint on the f32 exec values [B, p, max_v+1] (last
+    slot = dump): every relaxation pass and the per-worker convergence flag
+    in one kernel launch over the B·p value rows, which share the p streams
+    (its ids' flag left in plan.err); the rows of a query that is not
+    `live` run no pass. Returns (values, per-worker inner iterations [B, p])."""
+    B, p, n = val.shape
+    new, iters = ops.bsp_superstep(
+        plan.lsrc, plan.ldst, plan.weight, val.reshape(B * p, n), num_out=plan.num_out,
+        combine="min", inner_cap=inner_cap, block_e=plan.block_e, err=plan.err, live=live,
     )
+    return new.reshape(B, p, n), iters.reshape(B, p)
 
 
 def _local_sweep(plan: _RunPlan, val: torch.Tensor) -> torch.Tensor:
     """One out-degree-normalized push-sum pass (PageRank's local compute):
     each vertex pushes val/outdeg along its out-edges, summed at dst."""
+    B, p, n = val.shape
     new, _ = ops.bsp_superstep(
-        plan.lsrc, plan.ldst, plan.weight, val, num_out=plan.num_out, combine="sum",
-        out_degree=plan.out_degree, block_e=plan.block_e, err=plan.err,
+        plan.lsrc, plan.ldst, plan.weight, val.reshape(B * p, n), num_out=plan.num_out,
+        combine="sum", out_degree=plan.out_degree, block_e=plan.block_e, err=plan.err,
     )
-    return new
+    return new.reshape(B, p, n)
 
 
 # --------------------------------------------------- THE generic superstep
@@ -400,64 +496,71 @@ def _apply_step(prog: VertexProgram, sub: SubgraphSet, combined: torch.Tensor, n
     if prog.apply == "none":
         return combined
     base = (1.0 - prog.damping) / num_vertices
-    new = torch.where(sub.is_master, base + prog.damping * combined[:, : sub.max_v], 0.0)
+    new = torch.where(sub.is_master, base + prog.damping * combined[..., : sub.max_v], 0.0)
     return _with_dump(new.to(torch.float32), 0.0)
 
 
 def _sim_exchange(S: torch.Tensor) -> torch.Tensor:
-    return S.transpose(0, 1)
+    """[B, i, j, m] sender-rowed ↔ [B, j, i, m] receiver-rowed."""
+    return S.transpose(1, 2)
 
 
 def _superstep(prog: VertexProgram, sub: SubgraphSet, plan: _RunPlan, val: torch.Tensor,
-               inner_cap: int, do_exchange: bool = True, count_ref=None, num_vertices: int = 0):
+               inner_cap: int, do_exchange: bool = True, count_ref=None, num_vertices: int = 0,
+               live=None):
     """ONE BSP superstep for ANY program (exec view: f32 values, combine
-    "min" or "sum"). Returns (new_val, per-worker msg count, per-worker
-    inner iters, L1 delta or None).
+    "min" or "sum") over a batch of B queries: val [B, p, max_v+1] (a
+    single run is B = 1). Returns (new_val, per-worker msg count [B, p],
+    per-worker inner iters [B, p], per-query L1 delta [B] or None).
 
     Stages: local compute → mirror→master exchange + combine → apply →
     master→mirror broadcast. `count_ref` is the value snapshot of the LAST
     exchange — delta messages are counted against it (matters under bounded
     staleness). The L1 delta is only computed for convergence='tol'.
+    `live` ([B] bool, the fused loop's mask) spares the fixpoint kernel the
+    rows of finished queries: their outputs are then the inputs, and the
+    caller discards them. The body holds no host sync, so a CUDA graph can
+    capture it.
     """
-    p = val.shape[0]
+    B, p, _ = val.shape
     start = val if count_ref is None else count_ref
 
     # 1. local compute. Sweep programs carry the per-vertex partial
     # aggregate (one sweep = one inner iteration of comp work per worker).
     if prog.local == "fixpoint":
-        state, iters = _local_fixpoint(plan, val, inner_cap)
+        state, iters = _local_fixpoint(plan, val, inner_cap, live)
     else:
         state = _local_sweep(plan, val)
-        iters = torch.ones((p,), dtype=torch.int32, device=val.device)
+        iters = torch.ones((B, p), dtype=torch.int32, device=val.device)
     if not do_exchange:  # bounded-staleness local step
-        return state, torch.zeros((p,), dtype=torch.int32, device=val.device), iters, None
+        return state, torch.zeros((B, p), dtype=torch.int32, device=val.device), iters, None
 
     # 2. mirror → master (forward): send current state of mirror slots.
     shape = sub.send_idx.shape
-    S = _gather_rows(state, plan.send_idx, shape)  # [i, j, m]
+    S = _gather_rows(state, plan.send_idx, shape)  # [b, i, j, m]
     if prog.message_policy == "delta":
         ch_send = _gather_rows(state != start, plan.send_idx, shape)
-        msgs_fwd = (ch_send & sub.msg_mask).sum(dim=(1, 2))
+        msgs_fwd = (ch_send & sub.msg_mask).sum(dim=(2, 3))
     else:
-        msgs_fwd = sub.msg_mask.sum(dim=(1, 2))
-    R = _sim_exchange(S)  # receiver-rowed [j, i, m]
+        msgs_fwd = sub.msg_mask.sum(dim=(1, 2)).expand(B, p)
+    R = _sim_exchange(S)  # receiver-rowed [b, j, i, m]
     upd = torch.where(sub.recv_mask, R, prog.identity)
     combined = _scatter(state, plan.recv_idx, upd, "sum" if prog.combine == "sum" else "amin")
 
     # 3. apply at masters, then master → mirror (broadcast).
     new_val = _apply_step(prog, sub, combined, num_vertices)
-    B = _gather_rows(new_val, plan.recv_idx, shape)  # [j, i, m] master values
+    Bm = _gather_rows(new_val, plan.recv_idx, shape)  # [b, j, i, m] master values
     if prog.message_policy == "delta":
         ch_b = _gather_rows(new_val != start, plan.recv_idx, shape)
-        msgs_bwd = (ch_b & sub.recv_mask).sum(dim=(1, 2))
+        msgs_bwd = (ch_b & sub.recv_mask).sum(dim=(2, 3))
     else:
-        msgs_bwd = sub.recv_mask.sum(dim=(1, 2))
-    Rb = _sim_exchange(B)  # sender-rowed view at mirrors: [i, j, m]
+        msgs_bwd = sub.recv_mask.sum(dim=(1, 2)).expand(B, p)
+    Rb = _sim_exchange(Bm)  # sender-rowed view at mirrors: [b, i, j, m]
     out = _scatter(new_val, plan.bcast_idx, Rb, "set")
 
     delta = None
     if prog.convergence == "tol":
-        delta = (out[:, : sub.max_v] - val[:, : sub.max_v]).abs().sum()
+        delta = (out[..., : sub.max_v] - val[..., : sub.max_v]).abs().sum(dim=(1, 2))
     return out, (msgs_fwd + msgs_bwd).to(torch.int32), iters, delta
 
 
@@ -590,26 +693,39 @@ def _assemble_stats(steps: int, msgs_sw: np.ndarray, iters_sw: np.ndarray,
     )
 
 
-def _exec_values(prog: VertexProgram, sub: SubgraphSet, init_val, num_vertices, source):
-    """The run's entry into the exec domain: (exec program, f32 values,
-    negate?, codec-or-None). The driver undoes each step on exit."""
-    if init_val is None:
-        init_val = prog.init(sub, num_vertices=num_vertices, source=source)
-    init_val = init_val.to(sub.device)
+def _to_exec(prog: VertexProgram, sub: SubgraphSet, val: torch.Tensor):
+    """Values in the program's domain → the exec domain: (exec program, f32
+    values, negate?, codec-or-None). The driver undoes each step on exit
+    (`_from_exec`)."""
     # Max-combine runs as min over negated values; delta message counts and
     # no-change convergence are negation-invariant.
     exec_prog, negate = _exec_view(prog)
-    val = -init_val if negate else init_val
+    val = -val if negate else val
     # Two-level runs rank-compress label-domain values so the kernels only
-    # ever see ranks < 2^24; codec=None means values pass raw.
+    # ever see ranks < 2^24; codec=None means values pass raw. A batch has
+    # one codec, over the union of its queries' values.
     val, codec = _kernel_value_boundary(prog, sub, val)
     # The kernels compute in f32: int32 programs run on an f32 view of their
     # values for the whole run (the remap is a bijection on every value
     # that occurs, so values, counts and convergence are unchanged).
     if prog.dtype == "int32":
         val = _to_f32(val)
-        exec_prog = dataclasses.replace(exec_prog, dtype="float32")
-    return exec_prog, val, negate, codec
+    return exec_prog, val.contiguous(), negate, codec
+
+
+def _from_exec(prog: VertexProgram, val: torch.Tensor, negate: bool, codec) -> torch.Tensor:
+    if prog.dtype == "int32":
+        val = _to_i32(val)
+    if codec is not None:
+        val = codec.decode(val)
+    return -val if negate else val
+
+
+def _exec_values(prog: VertexProgram, sub: SubgraphSet, init_val, num_vertices, source):
+    """The run's entry into the exec domain (`_to_exec` of its init)."""
+    if init_val is None:
+        init_val = prog.init(sub, num_vertices=num_vertices, source=source)
+    return _to_exec(prog, sub, init_val.to(sub.device))
 
 
 def kernel_inputs(sub: SubgraphSet, program, *, num_vertices: int = 0, source=None,
@@ -617,10 +733,15 @@ def kernel_inputs(sub: SubgraphSet, program, *, num_vertices: int = 0, source=No
     """The local stage's kernel inputs at the start of a run of `program`:
     ((lsrc, ldst, weight, out_degree-or-None), f32 values, num_out) — what
     the first superstep hands `ops.bsp_superstep`. For holding the kernel
-    against its plain version at the shapes a real run gives it."""
+    against its plain version at the shapes a real run gives it. `source`
+    may be a sequence of B sources: the values are then a batch's,
+    [B·p, num_out], each query's p rows encoded on its own."""
     prog = get_program(program)
-    exec_prog, val, _, _ = _exec_values(prog, sub, None, num_vertices, source)
+    sources = source if isinstance(source, (list, tuple)) else [source]
+    vals = [_exec_values(prog, sub, None, num_vertices, s) for s in sources]
+    exec_prog = vals[0][0]
     plan = _run_plan(exec_prog, sub, block_e)
+    val = torch.cat([v[1] for v in vals])
     return (plan.lsrc, plan.ldst, plan.weight, plan.out_degree), val, plan.num_out
 
 
@@ -631,6 +752,192 @@ def check_pagerank_num_vertices(prog: VertexProgram, num_vertices: int) -> None:
             f"program {prog.name!r} renormalizes by the global vertex count: "
             "pass num_vertices= (GraphPipeline supplies graph.num_vertices)"
         )
+
+
+def _check_staleness(prog: VertexProgram, exchange_period: int) -> None:
+    if exchange_period < 1:
+        raise ValueError(f"exchange_period must be >= 1, got {exchange_period}")
+    if exchange_period > 1 and (prog.local != "fixpoint" or prog.convergence != "no_change"):
+        raise ValueError(
+            f"exchange_period>1 (bounded staleness) needs a fixpoint/no-change program; "
+            f"{prog.name!r} is local={prog.local!r}, convergence={prog.convergence!r}"
+        )
+
+
+# ------------------------------------------------- the fused loop on the card
+
+
+def _chunk_length(exchange_period: int) -> int:
+    """Supersteps a chunk: FUSED_CHUNK raised to a multiple of the exchange
+    period, so that every step's exchange is static within the chunk."""
+    return -(-FUSED_CHUNK // exchange_period) * exchange_period
+
+
+_GRAPH_POOLS: dict = {}
+
+
+def _graph_pool(device: torch.device):
+    """The memory pool the fused loops' CUDA graphs share on `device`. A
+    loop's graph holds no live allocation between replays (its state lives
+    outside the pool), so graphs replayed in any order may share it."""
+    pool = _GRAPH_POOLS.get(device)
+    if pool is None:
+        pool = _GRAPH_POOLS[device] = torch.cuda.graph_pool_handle()
+    return pool
+
+
+class _FusedLoop:
+    """The fused driver's loop for B queries of one exec program over one
+    SubgraphSet: the value carry, the step counters, the per-step
+    [max_supersteps + 1, B, p] message and inner-iteration buffers (row
+    max_supersteps takes the masked steps' writes) and the done flags live
+    on the device, and a chunk of K masked supersteps advances them in
+    place (`_chunk`). Masking is the reference's batched driver's: a query
+    that is done, or has run max_supersteps, keeps its values, counts no
+    step and writes no stats row, so each query's stats are its own run's;
+    the fixpoint kernel runs no pass over its rows (a masked step costs the
+    launch and the exchange's tensor ops).
+
+    On the card the chunk is captured once into a CUDA graph (after one
+    eager chunk has built and loaded every kernel at these shapes) and
+    replayed; on the CPU the same chunk runs eagerly. The host reads the
+    stop flag once a chunk, and the stats once a run."""
+
+    def __init__(self, prog: VertexProgram, sub: SubgraphSet, plan: _RunPlan, batch: int, *,
+                 max_supersteps: int, inner_cap: int, exchange_period: int, tol: float,
+                 num_vertices: int):
+        # The set holds its loops (`_sub_cache`); a weak reference back
+        # keeps that from being a cycle, so a loop and its graph go when
+        # the set goes, never in a garbage collection during a capture.
+        self.prog, self._sub, self.plan = prog, weakref.ref(sub), plan
+        self.max_supersteps, self.inner_cap = int(max_supersteps), int(inner_cap)
+        self.period, self.tol, self.num_vertices = int(exchange_period), float(tol), num_vertices
+        self.chunk_steps = _chunk_length(self.period)
+        # A tol program with tol=0 runs all max_supersteps: nothing to read.
+        self.can_stop = not (prog.convergence == "tol" and not self.tol)
+        dev, p, n = sub.device, sub.num_parts, sub.max_v + 1
+        B = int(batch)
+        self.val = torch.zeros((B, p, n), dtype=torch.float32, device=dev)
+        self.last_ex = self.val.clone() if self.period > 1 else None
+        self.done = torch.zeros((B,), dtype=torch.bool, device=dev)
+        self.steps_q = torch.zeros((B,), dtype=torch.int32, device=dev)
+        self.k = torch.zeros((1,), dtype=torch.int64, device=dev)
+        self.stop = torch.zeros((), dtype=torch.bool, device=dev)
+        rows = self.max_supersteps + 1
+        self.msgs = torch.zeros((rows, B, p), dtype=torch.int32, device=dev)
+        self.iters = torch.zeros((rows, B, p), dtype=torch.int32, device=dev)
+        self.edges = sub.edge_mask.sum(dim=1)
+        self.graph = None
+        self.replay_launches = collections.Counter()
+
+    def _chunk(self) -> None:
+        """K masked supersteps on the loop's state, in place; no host sync."""
+        prog, mx, sub = self.prog, self.max_supersteps, self._sub()
+        for i in range(self.chunk_steps):
+            do_ex = (i % self.period) == self.period - 1
+            live = ~self.done & (self.steps_q < mx)
+            v2, msgs, iters, delta = _superstep(
+                prog, sub, self.plan, self.val, self.inner_cap, do_ex, self.last_ex,
+                self.num_vertices, live,
+            )
+            if prog.convergence == "tol":
+                newly = (delta < self.tol) if self.tol else None
+            elif do_ex:
+                # Converged only when an exchange round changed nothing.
+                newly = ~(v2 != self.val).flatten(1).any(dim=1)
+            else:
+                newly = None
+            self.val.copy_(torch.where(live[:, None, None], v2, self.val))
+            if self.last_ex is not None and do_ex:
+                self.last_ex.copy_(self.val)
+            any_live = live.any()
+            row = torch.where(any_live, self.k, mx)
+            self.msgs.index_copy_(0, row, torch.where(live[:, None], msgs, 0)[None])
+            self.iters.index_copy_(0, row, torch.where(live[:, None], iters, 0)[None])
+            self.k += any_live
+            self.steps_q += live
+            if newly is not None:
+                self.done |= live & newly
+        self.stop.copy_(~(~self.done & (self.steps_q < mx)).any())
+
+    def _advance(self) -> None:
+        if self.val.device.type != "cuda":
+            self._chunk()
+            return
+        if self.graph is None:
+            self._chunk()  # the eager chunk that builds and loads every kernel
+            self.capture()
+            return
+        self.graph.replay()
+        dispatch.add_launches(self.replay_launches)
+
+    def capture(self) -> None:
+        """Capture one chunk into a CUDA graph (the state is left as it
+        is: a capture runs nothing). A capture that fails raises. The
+        garbage collector is off meanwhile: a collection that destroyed
+        another graph or freed device memory mid-capture would invalidate
+        it."""
+        graph = torch.cuda.CUDAGraph()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, pool=_graph_pool(self.val.device)):
+                launches = dispatch.captured_launches(self._chunk)
+        finally:
+            if collecting:
+                gc.enable()
+        torch.cuda.synchronize()
+        self.graph, self.replay_launches = graph, launches
+        CAPTURES["graphs"] += 1
+
+    def run(self, init: torch.Tensor, driver: str, queries: Optional[int] = None):
+        """One run from exec-domain values `init` [B, p, n]; with `queries`,
+        only the first `queries` rows are real and the padding rows behind
+        them start done (no step, no pass: their values stay the init's).
+        Returns (the final exec values, a copy; steps per query; msgs
+        [S, B, p]; iters [S, B, p]; edges [p]) with the stats on the host."""
+        self.val.copy_(init)
+        if self.last_ex is not None:
+            self.last_ex.copy_(init)
+        for t in (self.done, self.steps_q, self.k, self.stop, self.msgs, self.iters,
+                  self.plan.err):
+            t.zero_()
+        if queries is not None:
+            self.done[queries:] = True
+        chunks = -(-self.max_supersteps // self.chunk_steps)
+        for c in range(chunks):
+            self._advance()
+            if self.can_stop and c + 1 < chunks:
+                HOST_SYNCS[driver] += 1
+                if bool(self.stop):  # the run's one host sync a chunk
+                    break
+        HOST_SYNCS[driver] += 1
+        steps_q, msgs, iters, edges, bad = (t.cpu().numpy().astype(np.int64) for t in (
+            self.steps_q, self.msgs, self.iters, self.edges, self.plan.err))
+        check_flag(int(bad[0]), self.plan.lsrc, self.plan.ldst, self.plan.num_out)
+        return self.val.clone(), steps_q, msgs, iters, edges
+
+
+def _fused_loop(prog: VertexProgram, sub: SubgraphSet, batch: int, *, max_supersteps: int,
+                inner_cap: int, exchange_period: int, tol: float, num_vertices: int,
+                block_e: int) -> _FusedLoop:
+    """The cached loop of (SubgraphSet, exec program, knobs, batch): a warm
+    run reuses it, and on the card its captured graph."""
+    key = ("loop", prog, int(batch), int(max_supersteps), int(inner_cap), int(exchange_period),
+           float(tol), int(num_vertices), int(block_e))
+    cache = _sub_cache(sub)
+    loop = cache.get(key)
+    if loop is None:
+        loop = cache[key] = _FusedLoop(
+            prog, sub, _plan_for(prog, sub, block_e), batch, max_supersteps=max_supersteps,
+            inner_cap=inner_cap, exchange_period=exchange_period, tol=tol,
+            num_vertices=num_vertices,
+        )
+        CAPTURES["loops"] += 1
+    return loop
+
+
+# ----------------------------------------------------- single-query drivers
 
 
 def run_bsp(
@@ -644,6 +951,7 @@ def run_bsp(
     tol: float = 0.0,
     num_vertices: int = 0,
     source=None,
+    driver: str = "fused",
     block_e: int = 512,
     device=None,
 ) -> tuple[torch.Tensor, BSPStats]:
@@ -659,11 +967,13 @@ def run_bsp(
     the edge stream as the reference's kernel wrapper does (values are
     identical for every block_e).
 
-    The loop keeps the value carry and the per-step stats in device buffers
-    and syncs with the host once per superstep, for the convergence flag.
-    The kernels' id flag comes to the host with the syncs the run makes
-    anyway: with no-change convergence in one transfer with that flag, and
-    at the end with the stats; an id outside [0, num_out) raises ValueError.
+    driver="fused" keeps the carry, the counters, the stats and the
+    convergence flag on the device and runs chunks of K masked supersteps
+    (a CUDA graph on the card), reading the flag once a chunk;
+    driver="host" runs one superstep per Python iteration and syncs once a
+    superstep for the flag. Both return the same values and stats, bit for
+    bit. The kernels' id flag comes to the host with the syncs the run
+    makes anyway; an id outside [0, num_out) raises ValueError.
     Returns (values [p, max_v+1] in the program's dtype, BSPStats); the
     values and every stat match the reference's fused and host drivers.
     """
@@ -672,19 +982,33 @@ def run_bsp(
     prog = get_program(program)
     check_int32_kernel_labels(prog, sub)
     check_pagerank_num_vertices(prog, num_vertices)
+    check_driver(driver)
     if max_supersteps is None:
         max_supersteps = prog.default_steps or 200
-    if exchange_period < 1:
-        raise ValueError(f"exchange_period must be >= 1, got {exchange_period}")
-    if exchange_period > 1 and (prog.local != "fixpoint" or prog.convergence != "no_change"):
-        raise ValueError(
-            f"exchange_period>1 (bounded staleness) needs a fixpoint/no-change program; "
-            f"{prog.name!r} is local={prog.local!r}, convergence={prog.convergence!r}"
-        )
+    _check_staleness(prog, exchange_period)
     exec_prog, val, negate, codec = _exec_values(prog, sub, init_val, num_vertices, source)
-    plan = _run_plan(exec_prog, sub, block_e)
 
-    p = val.shape[0]
+    if driver == "fused":
+        loop = _fused_loop(exec_prog, sub, 1, max_supersteps=max_supersteps, inner_cap=inner_cap,
+                           exchange_period=exchange_period, tol=tol, num_vertices=num_vertices,
+                           block_e=block_e)
+        out, steps_q, msgs, iters, edges = loop.run(val[None], "fused")
+        DISPATCH_COUNTS["fused"] += 1
+        steps = int(steps_q[0])
+        stats = _assemble_stats(steps, msgs[:steps, 0], iters[:steps, 0], edges)
+        return _from_exec(prog, out[0], negate, codec), stats
+    return _host_bsp(prog, exec_prog, sub, val, negate, codec, max_supersteps=max_supersteps,
+                     inner_cap=inner_cap, exchange_period=exchange_period, tol=tol,
+                     num_vertices=num_vertices, block_e=block_e)
+
+
+def _host_bsp(prog, exec_prog, sub, val, negate, codec, *, max_supersteps, inner_cap,
+              exchange_period, tol, num_vertices, block_e):
+    """The host driver: one superstep and one host sync per iteration."""
+    plan = _plan_for(exec_prog, sub, block_e)
+    plan.err.zero_()
+    val = val[None]
+    p = sub.num_parts
     dev = sub.device
     msgs_buf = torch.zeros((max_supersteps, p), dtype=torch.int32, device=dev)
     iters_buf = torch.zeros((max_supersteps, p), dtype=torch.int32, device=dev)
@@ -695,14 +1019,19 @@ def run_bsp(
         v2, msgs, iters, delta = _superstep(
             exec_prog, sub, plan, val, inner_cap, do_ex, last_ex, num_vertices,
         )
-        msgs_buf[k] = msgs
-        iters_buf[k] = iters
+        DISPATCH_COUNTS["host"] += 1
+        msgs_buf[k] = msgs[0]
+        iters_buf[k] = iters[0]
         steps += 1
         if exec_prog.convergence == "tol":
-            converged = bool(tol) and bool(delta < tol)
+            converged = False
+            if tol:
+                HOST_SYNCS["host"] += 1
+                converged = bool(delta[0] < tol)
         elif do_ex:
             # Converged only when an exchange round produced no change; the
             # id flag comes in the same transfer.
+            HOST_SYNCS["host"] += 1
             changed, bad = torch.stack([torch.any(v2 != val).to(torch.int32),
                                         plan.err[0]]).tolist()
             check_flag(bad, plan.lsrc, plan.ldst, plan.num_out)
@@ -715,12 +1044,184 @@ def run_bsp(
         if converged:
             break
 
-    if prog.dtype == "int32":
-        val = _to_i32(val)
-    if codec is not None:
-        val = codec.decode(val)
+    HOST_SYNCS["host"] += 1
     edges = sub.edge_mask.sum(dim=1)
     msgs_sw, iters_sw, edges, bad = (t.cpu().numpy().astype(np.int64) for t in (
         msgs_buf[:steps], iters_buf[:steps], edges, plan.err))
     check_flag(int(bad[0]), plan.lsrc, plan.ldst, plan.num_out)
-    return (-val if negate else val), _assemble_stats(steps, msgs_sw, iters_sw, edges)
+    return _from_exec(prog, val[0], negate, codec), _assemble_stats(steps, msgs_sw, iters_sw, edges)
+
+
+# ------------------------------------------------------------ batched driver
+#
+# The serving tier runs a [B] batch of point queries over SHARED subgraph
+# structure in one fused loop: the generic superstep takes the batch axis
+# (the kernels run B·p value rows on the p streams) and a per-query
+# convergence mask freezes finished queries while stragglers run, so each
+# query's BSPStats report the supersteps IT paid and are bit-identical to
+# B separate single-source `run_bsp` runs.
+
+
+def batch_init(prog, sub: SubgraphSet, sources=None, *, batch: Optional[int] = None,
+               num_vertices: int = 0) -> torch.Tensor:
+    """[B, p, max_v+1] initial values for a batch of point queries.
+
+    Source-rooted programs take `sources` (a [B] sequence of vertex ids),
+    each validated BEFORE any init is built — one bad source fails fast
+    with the offending id named. Source-free programs (CC/PR/reach:
+    whole-graph queries) take `batch` (or infer it from len(sources)) and
+    tile one init B times.
+    """
+    prog = get_program(prog)
+    if prog.needs_source:
+        if sources is None:
+            raise ValueError(
+                f"program {prog.name!r} is source-rooted: pass sources= (a [B] "
+                "sequence of vertex ids)"
+            )
+        for s in sources:
+            check_source(sub, s, num_vertices)
+        return torch.stack(
+            [prog.init(sub, num_vertices=num_vertices, source=s) for s in sources]
+        )
+    if batch is None:
+        batch = len(sources) if sources is not None else 0
+    if batch < 1:
+        raise ValueError(
+            f"program {prog.name!r} is source-free: pass batch= (or sources= "
+            "to size the batch)"
+        )
+    one = prog.init(sub, num_vertices=num_vertices)
+    return one[None].repeat(int(batch), 1, 1)
+
+
+def _assemble_batch_stats(steps_q, msgs_sbw, iters_sbw, edges) -> list:
+    """Per-query BSPStats from the batched [S, B, p] buffers: query b's
+    series is truncated to the supersteps IT paid under masking."""
+    return [
+        _assemble_stats(int(steps_q[b]), msgs_sbw[: int(steps_q[b]), b],
+                        iters_sbw[: int(steps_q[b]), b], edges)
+        for b in range(msgs_sbw.shape[1])
+    ]
+
+
+def _resolve_batch_args(sub, program, *, max_supersteps, num_vertices, exchange_period=1):
+    prog = get_program(program)
+    check_int32_kernel_labels(prog, sub)
+    check_pagerank_num_vertices(prog, num_vertices)
+    if exchange_period != 1:
+        raise ValueError(
+            "the batched driver always exchanges every superstep; "
+            f"exchange_period={exchange_period} is not supported — run staleness "
+            "experiments through single-query run_bsp"
+        )
+    if max_supersteps is None:
+        max_supersteps = prog.default_steps or 200
+    return prog, max_supersteps
+
+
+def _run_batch_loop(loop: _FusedLoop, prog: VertexProgram, sub: SubgraphSet,
+                    init_vals: torch.Tensor, queries: Optional[int] = None):
+    exec_prog, vals, negate, codec = _to_exec(prog, sub, init_vals.to(sub.device))
+    out, steps_q, msgs, iters, edges = loop.run(vals, "batch", queries)
+    DISPATCH_COUNTS["batch"] += 1
+    return _from_exec(prog, out, negate, codec), _assemble_batch_stats(steps_q, msgs, iters, edges)
+
+
+def run_bsp_batch(
+    sub: SubgraphSet,
+    program,
+    sources=None,
+    init_vals: Optional[torch.Tensor] = None,
+    *,
+    batch: Optional[int] = None,
+    max_supersteps: Optional[int] = None,
+    inner_cap: int = 10_000,
+    exchange_period: int = 1,
+    tol: float = 0.0,
+    num_vertices: int = 0,
+    block_e: int = 512,
+) -> tuple[torch.Tensor, list]:
+    """Batched multi-source BSP: B queries of one program in ONE fused loop
+    over shared subgraph structure.
+
+    Returns (values [B, p, max_v+1], per-query BSPStats list) — each query's
+    values AND stats are bit-identical to a single-source `run_bsp` call.
+    """
+    prog, max_supersteps = _resolve_batch_args(
+        sub, program, max_supersteps=max_supersteps, num_vertices=num_vertices,
+        exchange_period=exchange_period,
+    )
+    if init_vals is None:
+        init_vals = batch_init(prog, sub, sources, batch=batch, num_vertices=num_vertices)
+    exec_prog, _ = _exec_view(prog)
+    loop = _fused_loop(exec_prog, sub, init_vals.shape[0], max_supersteps=max_supersteps,
+                       inner_cap=inner_cap, exchange_period=1, tol=tol,
+                       num_vertices=num_vertices, block_e=block_e)
+    return _run_batch_loop(loop, prog, sub, init_vals)
+
+
+@dataclasses.dataclass
+class BatchExecutable:
+    """The batched loop captured for one (program, padded batch size): the
+    serving tier's executable-cache value, the counterpart of the
+    reference's AOT-compiled executable. On the card it holds the loop's
+    CUDA graph, captured and instantiated by `compile_batch_executable`
+    (`compile_s`); `run` copies the init into the graph's static input and
+    replays, capturing nothing. Negation (max-combine programs), the
+    codec and per-query stats assembly live in the wrapper, outside the
+    graph."""
+
+    program: VertexProgram
+    sub: SubgraphSet
+    batch: int
+    loop: _FusedLoop
+    compile_s: float
+
+    def run(self, init_vals: torch.Tensor, queries: Optional[int] = None
+            ) -> tuple[torch.Tensor, list]:
+        """Same contract as `run_bsp_batch`. `queries` (≤ batch): how many
+        leading rows are real queries; the padding rows behind them run no
+        step and come back as their init with 0 supersteps (the reference
+        runs them as copies of a real query and discards them, as the
+        server does)."""
+        if init_vals.shape[0] != self.batch:
+            raise ValueError(
+                f"executable compiled for batch {self.batch}, got {init_vals.shape[0]} "
+                "— pad the batch to its bucket first"
+            )
+        if queries is not None and not 1 <= queries <= self.batch:
+            raise ValueError(f"queries must be in [1, {self.batch}], got {queries}")
+        return _run_batch_loop(self.loop, self.program, self.sub, init_vals, queries)
+
+
+def compile_batch_executable(
+    sub: SubgraphSet,
+    program,
+    batch: int,
+    *,
+    max_supersteps: Optional[int] = None,
+    inner_cap: int = 10_000,
+    tol: float = 0.0,
+    num_vertices: int = 0,
+    block_e: int = 512,
+) -> BatchExecutable:
+    """Build the batched loop for a fixed padded batch size and, on the
+    card, capture its CUDA graph (after one eager chunk on placeholder
+    values that builds and loads every kernel at these shapes): the warm
+    path behind `repro_torch.serve`'s executable cache."""
+    prog, max_supersteps = _resolve_batch_args(
+        sub, program, max_supersteps=max_supersteps, num_vertices=num_vertices,
+    )
+    if batch < 1:
+        raise ValueError(f"batch must be >= 1, got {batch}")
+    exec_prog, _ = _exec_view(prog)
+    t0 = time.perf_counter()
+    loop = _fused_loop(exec_prog, sub, batch, max_supersteps=max_supersteps,
+                       inner_cap=inner_cap, exchange_period=1, tol=tol,
+                       num_vertices=num_vertices, block_e=block_e)
+    if loop.graph is None and sub.device.type == "cuda":
+        loop._chunk()  # on the zeros it was built with; `run` resets every buffer
+        loop.capture()
+    return BatchExecutable(program=prog, sub=sub, batch=int(batch), loop=loop,
+                           compile_s=time.perf_counter() - t0)

@@ -3,8 +3,12 @@
 
 Port of the TPU kernel `repro.kernels.bsp_superstep.bsp_superstep_pallas`
 (oracle `repro.kernels.ref.bsp_superstep_ref`). Inputs are [p, E] edge
-streams lsrc/ldst (int32) and weight (f32), and values val [p, num_out]
-(f32); the result is (new_val [p, num_out] f32, iters [p] int32).
+streams lsrc/ldst (int32) and weight (f32), and values val [R, num_out]
+(f32) with R = B·p: value row r runs on stream row r % p, so a batch of B
+queries over one partition shares the streams (the reference's batched
+driver vmaps the kernel); the stream is never copied. The result is
+(new_val [R, num_out] f32, iters [R] int32); a batch's rows are bitwise
+the rows of the same values launched alone.
 
   combine="min": Jacobi min-plus passes to the local fixpoint, capped at
       `inner_cap`; each pass gathers from the values at its start and
@@ -15,6 +19,9 @@ streams lsrc/ldst (int32) and weight (f32), and values val [p, num_out]
       +0 candidates tie below a positive value: the kernel keeps -0, the
       plain version the first in edge order (equal as floats). A -0
       candidate needs a -0 weight, which no program's stream holds.
+  A `live` mask (min only; bool [B], one a query) leaves the rows of a
+      query that is not live as they are: no pass, 0 iterations (the
+      engine's masked steps cost no pass of the kernel).
   combine="sum": one push-sum sweep of `val/out_degree` (`out_degree`
       [p, num_out] f32); pads carry weight 0. The f32 products are added
       in float64 and each sum rounded to f32 once (the reference adds in
@@ -55,11 +62,20 @@ COMBINES = ("min", "sum")
 
 
 def bsp_superstep_plain(lsrc, ldst, weight, val, num_out: int, *, combine: str = "min",
-                        inner_cap: int = 1, out_degree=None):
+                        inner_cap: int = 1, out_degree=None, live=None):
     """Plain PyTorch version (any device), term for term the reference
     oracle: a batched any-worker pass loop whose per-worker change counts
-    equal the per-worker loop's."""
-    p = val.shape[0]
+    equal the per-worker loop's. A batch of value rows (R = B·p) runs
+    query by query, each on the shared streams; a query that is not live
+    (`live`, min only) keeps its values with 0 iterations."""
+    p = lsrc.shape[0]
+    if val.shape[0] != p or live is not None:
+        lives = [True] * (val.shape[0] // p) if live is None else live.tolist()
+        outs = [bsp_superstep_plain(lsrc, ldst, weight, v, num_out, combine=combine,
+                                    inner_cap=inner_cap, out_degree=out_degree) if on
+                else (v.clone(), torch.zeros((p,), dtype=torch.int32, device=v.device))
+                for v, on in zip(val.split(p), lives)]
+        return torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs])
     src = lsrc.long()
     dst = ldst.long()
     if combine == "sum":
@@ -88,9 +104,11 @@ def bsp_superstep_plain(lsrc, ldst, weight, val, num_out: int, *, combine: str =
     return v, iters
 
 
-def _check_arguments(lsrc, ldst, weight, val, num_out, combine, out_degree):
+def _check_arguments(lsrc, ldst, weight, val, num_out, combine, out_degree, live=None):
     if combine not in COMBINES:
         raise ValueError(f"combine must be one of {COMBINES}, got {combine!r}")
+    if live is not None and combine != "min":
+        raise ValueError("live is taken by combine='min' only")
     if (combine == "sum") != (out_degree is not None):
         raise ValueError("out_degree is required for combine='sum' and only then")
     if lsrc.ndim != 2:
@@ -100,9 +118,12 @@ def _check_arguments(lsrc, ldst, weight, val, num_out, combine, out_degree):
     check_tensor("lsrc", lsrc, torch.int32, (p, E), dev)
     check_tensor("ldst", ldst, torch.int32, (p, E), dev)
     check_tensor("weight", weight, torch.float32, (p, E), dev)
-    check_tensor("val", val, torch.float32, (p, num_out), dev)
+    rows = val.shape[0] if val.ndim == 2 and p and val.shape[0] % p == 0 else p
+    check_tensor("val", val, torch.float32, (rows, num_out), dev)
     if out_degree is not None:
         check_tensor("out_degree", out_degree, torch.float32, (p, num_out), dev)
+    if live is not None:
+        check_tensor("live", live, torch.bool, (rows // p,), dev)
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"bsp_superstep runs on CPU or CUDA tensors, got {dev}")
     if dev.type == "cuda" and E == 0:
@@ -120,7 +141,7 @@ def check_flag(err: torch.Tensor, lsrc, ldst, num_out: int) -> None:
 
 
 def launch_flagged(lsrc, ldst, weight, val, *, num_out: int, combine: str = "min",
-                   inner_cap: int = 1, out_degree=None, err=None, taken=None):
+                   inner_cap: int = 1, out_degree=None, err=None, taken=None, live=None):
     """The superstep without the read of the error flag: on the card the
     kernels OR the id guard's bits into `err` (an int32 [1] device tensor
     the caller zeroed, and reads when it syncs: `check_flag`); an edge with
@@ -128,35 +149,40 @@ def launch_flagged(lsrc, ldst, weight, val, *, num_out: int, combine: str = "min
     here, before the plain version. `taken` (min on the card only): a
     zeroed int64 [k] device tensor, to which pass i < k of the kernel adds
     the edges that took part in it (the others' sources kept their values).
-    Returns (new_val, iters)."""
-    _check_arguments(lsrc, ldst, weight, val, num_out, combine, out_degree)
-    return _run(lsrc, ldst, weight, val, num_out, combine, inner_cap, out_degree, err, taken)
+    `live`: see the module docstring. Returns (new_val, iters)."""
+    _check_arguments(lsrc, ldst, weight, val, num_out, combine, out_degree, live)
+    return _run(lsrc, ldst, weight, val, num_out, combine, inner_cap, out_degree, err, taken,
+                live)
 
 
-def _run(lsrc, ldst, weight, val, num_out, combine, inner_cap, out_degree, err, taken=None):
+def _run(lsrc, ldst, weight, val, num_out, combine, inner_cap, out_degree, err, taken=None,
+         live=None):
     if lsrc.device.type == "cpu":
         check_ids(("lsrc", lsrc, num_out), ("ldst", ldst, num_out))
         return bsp_superstep_plain(lsrc, ldst, weight, val, num_out, combine=combine,
-                                   inner_cap=inner_cap, out_degree=out_degree)
+                                   inner_cap=inner_cap, out_degree=out_degree, live=live)
     p, E = lsrc.shape
+    rows = val.shape[0]
     dev = lsrc.device
     check_tensor("err", err, torch.int32, (1,), dev)
     if taken is not None:
         check_tensor("taken", taken, torch.int64, (taken.numel(),), dev)
-    out = torch.empty((p, num_out), dtype=torch.float32, device=dev)
-    iters = torch.empty((p,), dtype=torch.int32, device=dev)
+    out = torch.empty((rows, num_out), dtype=torch.float32, device=dev)
+    iters = torch.empty((rows,), dtype=torch.int32, device=dev)
     scratch_bytes = c_function("bsp_superstep", "bsp_superstep_scratch_bytes",
                                [ctypes.c_int] * 4, restype=ctypes.c_longlong)
-    nbytes = scratch_bytes(p, E, num_out, COMBINES.index(combine))
+    nbytes = scratch_bytes(rows, E, num_out, COMBINES.index(combine))
     scratch = torch.empty(((nbytes + 7) // 8,), dtype=torch.float64, device=dev)
     fn = c_function("bsp_superstep", "bsp_superstep_launch",
-                    [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+                    [ctypes.c_void_p] * 10 + [ctypes.c_int, ctypes.c_void_p]
+                    + [ctypes.c_int] * 6 + [ctypes.c_void_p])
     code = fn(
         lsrc.data_ptr(), ldst.data_ptr(), weight.data_ptr(), val.data_ptr(),
         None if out_degree is None else out_degree.data_ptr(),
         out.data_ptr(), scratch.data_ptr(), iters.data_ptr(), err.data_ptr(),
         None if taken is None else taken.data_ptr(), 0 if taken is None else taken.numel(),
-        p, E, num_out, COMBINES.index(combine), int(inner_cap), cuda_stream_handle(),
+        None if live is None else live.data_ptr(),
+        p, rows, E, num_out, COMBINES.index(combine), int(inner_cap), cuda_stream_handle(),
     )
     check_launch("bsp_superstep", code)
     LAUNCHES[f"bsp_superstep.{combine}"] += 1
@@ -164,13 +190,14 @@ def _run(lsrc, ldst, weight, val, num_out, combine, inner_cap, out_degree, err, 
 
 
 def bsp_superstep(lsrc, ldst, weight, val, *, num_out: int, combine: str = "min",
-                  inner_cap: int = 1, out_degree=None):
+                  inner_cap: int = 1, out_degree=None, live=None):
     """One superstep's local stage; see the module docstring."""
-    _check_arguments(lsrc, ldst, weight, val, num_out, combine, out_degree)
+    _check_arguments(lsrc, ldst, weight, val, num_out, combine, out_degree, live)
     err = None
     if lsrc.device.type == "cuda":
         err = torch.zeros((1,), dtype=torch.int32, device=lsrc.device)
-    out = _run(lsrc, ldst, weight, val, num_out, combine, inner_cap, out_degree, err)
+    out = _run(lsrc, ldst, weight, val, num_out, combine, inner_cap, out_degree, err,
+               live=live)
     if err is not None:
         check_flag(err, lsrc, ldst, num_out)
     return out

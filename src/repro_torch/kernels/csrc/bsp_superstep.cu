@@ -3,13 +3,19 @@
 // Replaces the TPU kernel `_bsp_superstep_kernel` / `bsp_superstep_pallas`
 // in src/repro/kernels/bsp_superstep.py. Inputs per worker w: an edge
 // stream lsrc/ldst/weight [p, E] and values val [p, n] (n = num_out).
+// A launch takes R = B·p value rows against the p streams: value row r
+// reads stream r % p, so a batch of B queries over one partition shares
+// its streams (the TPU kernel took the batch axis under vmap); the
+// stream is never copied. Below, "worker" means a value row.
 //   MIN: Jacobi min-plus passes to the local fixpoint, at most inner_cap
 //        of them. A pass gathers from the values as they were at its start
 //        (prev), combines into acc seeded with prev,
 //          acc[d] = min(acc[d], prev[s] + w)   for every edge with w < INF,
 //        and changed = any(acc != prev). iters[w] = the number of passes
 //        that changed something. Pads carry w = INF (3e38) and are masked
-//        by a select, never by arithmetic.
+//        by a select, never by arithmetic. With a live mask (one byte a
+//        query), the rows of a query that is not live run no pass, keep
+//        their values and count 0 iterations.
 //   SUM: one push-sum sweep, out[d] = sum over edges into d of share[s] * w
 //        with share = val/outdeg (0 where outdeg == 0); edges with w == 0
 //        (pads) add nothing. The f32 products are added in f64 and the sum
@@ -158,11 +164,12 @@ __global__ void __launch_bounds__(segsum::kThreads)
                    float* __restrict__ out, unsigned long long* __restrict__ nchg,
                    uint2* __restrict__ vals, int* __restrict__ acc, unsigned* __restrict__ front,
                    int* __restrict__ chg, int* __restrict__ iters, unsigned* __restrict__ err,
-                   unsigned long long* __restrict__ taken, int max_passes, int p, int E, int n,
-                   int inner_cap, int vec) {
+                   unsigned long long* __restrict__ taken,
+                   const unsigned char* __restrict__ live, int max_passes, int p, int ps,
+                   int E, int n, int inner_cap, int vec) {
   using segsum::kEdges;
   cg::grid_group grid = cg::this_grid();
-  extern __shared__ int act[];  // [p] the workers active in this pass
+  extern __shared__ int act[];  // [p] the value rows active in this pass
   const int t = threadIdx.x, lane = t & 31;
   const long long tid = (long long)blockIdx.x * segsum::kThreads + t;
   const long long nthreads = (long long)gridDim.x * segsum::kThreads;
@@ -177,7 +184,10 @@ __global__ void __launch_bounds__(segsum::kThreads)
     vals[i] = make_uint2(__float_as_uint(x), 0u);
     acc[i] = fkey(x);
   }
-  for (long long i = tid; i < p; i += nthreads) chg[i] = 0;
+  // A row of a query that is not live (live[r / ps] == 0) is never
+  // active: it runs no pass and keeps its values.
+  for (long long i = tid; i < p; i += nthreads)
+    chg[i] = live == nullptr || live[i / ps] ? 0 : -1;
   if (tid < 2) nchg[tid] = 0;
   grid.sync();
 
@@ -202,7 +212,7 @@ __global__ void __launch_bounds__(segsum::kThreads)
       const long long row = j / per_row;
       x.r = act[row];
       x.e0 = (j - row * per_row) * segsum::kTile + (long long)t * kEdges;
-      const int* ls = lsrc + (long long)x.r * E + x.e0;
+      const int* ls = lsrc + (long long)(x.r % ps) * E + x.e0;
       if (vec && x.e0 + kEdges <= E) {
         const int4 a = __ldcs(reinterpret_cast<const int4*>(ls));
         x.s[0] = a.x, x.s[1] = a.y, x.s[2] = a.z, x.s[3] = a.w;
@@ -246,8 +256,8 @@ __global__ void __launch_bounds__(segsum::kThreads)
       }
       y.act = on;
       y.r = x.r;
-      const int* ld = ldst + (long long)x.r * E + x.e0;
-      const float* wt = weight + (long long)x.r * E + x.e0;
+      const int* ld = ldst + (long long)(x.r % ps) * E + x.e0;
+      const float* wt = weight + (long long)(x.r % ps) * E + x.e0;
       if (on && vec && x.e0 + kEdges <= E) {
         const int4 b = __ldcs(reinterpret_cast<const int4*>(ld));
         const float4 c = __ldcs(reinterpret_cast<const float4*>(wt));
@@ -346,7 +356,7 @@ __global__ void __launch_bounds__(segsum::kThreads)
   }
   // A worker changed in passes 1..c and then not (or was capped): c passes.
   if (blockIdx.x == 0)
-    for (int w = t; w < p; w += segsum::kThreads) iters[w] = __ldcg(chg + w);
+    for (int w = t; w < p; w += segsum::kThreads) iters[w] = max(__ldcg(chg + w), 0);
   for (long long i = tid; i < pn; i += nthreads) out[i] = __uint_as_float(__ldcg(vals + i).x);
 }
 
@@ -359,20 +369,23 @@ __device__ __forceinline__ float share_of(float v, float dg) {
 
 __global__ void __launch_bounds__(kThreads)
     bsp_share_kernel(const float* __restrict__ val, const float* __restrict__ out_degree,
-                     float* __restrict__ share, int* __restrict__ iters, long long total, int p,
-                     int vec) {
+                     float* __restrict__ share, int* __restrict__ iters, long long total,
+                     long long deg_total, int p, int vec) {
+  // Value i divides by out_degree[i % deg_total]: the rows of a batch
+  // share the p rows of out degrees.
   const long long i0 = ((long long)blockIdx.x * kThreads + threadIdx.x) * 4;
   if (i0 < p) {
     for (long long i = i0; i < i0 + 4 && i < p; ++i) iters[i] = 1;
   }
   if (vec && i0 + 4 <= total) {
     const float4 v = *reinterpret_cast<const float4*>(val + i0);
-    const float4 dg = *reinterpret_cast<const float4*>(out_degree + i0);
+    const float4 dg = *reinterpret_cast<const float4*>(out_degree + i0 % deg_total);
     *reinterpret_cast<float4*>(share + i0) = make_float4(
         share_of(v.x, dg.x), share_of(v.y, dg.y), share_of(v.z, dg.z), share_of(v.w, dg.w));
     return;
   }
-  for (long long i = i0; i < i0 + 4 && i < total; ++i) share[i] = share_of(val[i], out_degree[i]);
+  for (long long i = i0; i < i0 + 4 && i < total; ++i)
+    share[i] = share_of(val[i], out_degree[i % deg_total]);
 }
 
 // SUM, second pass: the workers' dst-sorted streams, tile by tile (a
@@ -391,15 +404,15 @@ __global__ void __launch_bounds__(segsum::kThreads)
     bsp_sum_kernel(const int* __restrict__ lsrc, const int* __restrict__ ldst,
                    const float* __restrict__ weight, const float* __restrict__ share,
                    float* __restrict__ out, int* __restrict__ carry_d,
-                   double* __restrict__ carry_v, unsigned* __restrict__ err, int p, int E, int n,
-                   int vec) {
+                   double* __restrict__ carry_v, unsigned* __restrict__ err, int p, int ps, int E,
+                   int n, int vec) {
   segsum::for_tiles(
-      lsrc, ldst, weight, p, E, vec != 0,
+      lsrc, ldst, weight, p, ps, E, vec != 0,
       [&](const segsum::Edges& edges, long long r, long long j, long long e0) {
         int* const cd = carry_d + 2 * j;
         double* const cv = carry_v + 2 * j;
         float* const o = out + r * n;
-        const int* const ld = ldst + r * E;
+        const int* const ld = ldst + (r % ps) * E;
         const long long begin = e0 - (long long)threadIdx.x * segsum::kEdges;
         const long long end = begin + segsum::kTile;
         const long long lo = begin == 0 ? 0 : max(0LL, __ldg(ld + begin - 1) + 1LL);
@@ -459,34 +472,62 @@ __global__ void __launch_bounds__(kThreads)
   if (sum != 0.0) out[r * n + d] = __double2float_rn(sum);
 }
 
+// The grid of the min kernel's cooperative launch with `smem` bytes of
+// active list: the occupancy queries run once a size (a graph capture
+// replays launches without calling them, and the engine launches each
+// size eagerly before it captures it).
+long long min_resident(const void* kern, size_t smem) {
+  constexpr int kSlots = 32;
+  static size_t sizes[kSlots];
+  static long long resident[kSlots];
+  static int used = 0;
+  for (int i = 0; i < used; ++i)
+    if (sizes[i] == smem) return resident[i];
+  const long long r = segsum::resident_ctas(kern, smem);
+  if (used < kSlots) {
+    sizes[used] = smem;
+    resident[used++] = r;
+  }
+  return r;
+}
+
 }  // namespace
 
 extern "C" {
 
-// Bytes of the scratch buffer bsp_superstep_launch needs.
-long long bsp_superstep_scratch_bytes(int p, int E, int n, int combine) {
-  if (combine == 0) {  // 2 counts, tagged values [p, n], keys [p, n], frontier [p, fw], chg [p]
+// Bytes of the scratch buffer bsp_superstep_launch needs for `rows` value
+// rows (p for one query, B·p for a batch).
+long long bsp_superstep_scratch_bytes(int rows, int E, int n, int combine) {
+  if (combine == 0) {  // 2 counts, tagged values [R, n], keys [R, n], frontier [R, fw], chg [R]
     const long long fw = (n + kFrontBits - 1) / kFrontBits;
-    return 16 + 12LL * p * n + 4LL * p * fw + 4LL * p;
+    return 16 + 12LL * rows * n + 4LL * rows * fw + 4LL * rows;
   }
   const long long slots = 2 * (((long long)E + segsum::kTile - 1) / segsum::kTile);
-  return 12LL * p * slots + 4LL * p * n;
+  return 12LL * rows * slots + 4LL * rows * n;
 }
 
 // combine: 0 = min (fixpoint), 1 = sum (one sweep; each worker's stream
-// dst-sorted). out_degree is read by sum only. scratch: 8-byte aligned,
-// bsp_superstep_scratch_bytes(p, E, n, combine) of it (min: the keys, the
-// frontier and the change marks; sum: the carry sums, the shares, the
+// dst-sorted). p streams of E edges; rows value rows (a multiple of p:
+// row r reads stream r % p); val, out [rows, n]; iters [rows];
+// out_degree [p, n], read by sum only. scratch: 8-byte aligned,
+// bsp_superstep_scratch_bytes(rows, E, n, combine) of it (min: the keys,
+// the frontier and the change marks; sum: the carry sums, the shares, the
 // carry destinations). err: a 4-byte device flag that the kernels OR the
 // id guard's bits into (bit 0: lsrc, bit 1: ldst outside [0, n)). taken
 // (min only; may be null): max_passes zeroed 8-byte counters, to which
-// pass k adds the edges that took part in it (k < max_passes). Returns the
-// launches' cudaGetLastError.
+// pass k adds the edges that took part in it (k < max_passes). live (min
+// only; may be null): one byte a query (rows / p of them); the rows of a
+// query whose byte is 0 run no pass, keep their values and count 0
+// iterations (the engine's masked steps). Every host
+// call here besides the launches is made once a shape, so a launch can be
+// captured into a CUDA graph after one eager launch of its shape. Returns
+// the launches' cudaGetLastError.
 int bsp_superstep_launch(const void* lsrc, const void* ldst, const void* weight, const void* val,
                          const void* out_degree, void* out, void* scratch, void* iters,
-                         void* err, void* taken, int max_passes, int p, int E, int n,
-                         int combine, int inner_cap, void* stream) {
-  if (p < 1 || E < 1 || n < 1 || err == nullptr) return (int)cudaErrorInvalidValue;
+                         void* err, void* taken, int max_passes, const void* live, int p,
+                         int rows, int E, int n, int combine, int inner_cap, void* stream) {
+  if (p < 1 || rows < p || rows % p != 0 || E < 1 || n < 1 || err == nullptr)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* ls = static_cast<const int*>(lsrc);
   const int* ld = static_cast<const int*>(ldst);
@@ -497,45 +538,50 @@ int bsp_superstep_launch(const void* lsrc, const void* ldst, const void* weight,
   int* it = static_cast<int*>(iters);
   unsigned* flag = static_cast<unsigned*>(err);
   auto* tk = static_cast<unsigned long long*>(taken);
+  const auto* lv = static_cast<const unsigned char*>(live);
   int vec = E % segsum::kEdges == 0 && segsum::aligned16(ls) && segsum::aligned16(ld) &&
             segsum::aligned16(w);
   cudaError_t e;
   if (combine == 0) {
     const void* kern = reinterpret_cast<const void*>(bsp_min_kernel);
-    const size_t smem = 4 * (size_t)p;  // the active list
-    if (smem > 48 * 1024) {
+    const size_t smem = 4 * (size_t)rows;  // the active list
+    static size_t smem_set = 48 * 1024;
+    if (smem > smem_set) {
       e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
       if (e != cudaSuccess) return (int)e;
+      smem_set = smem;
     }
-    const long long resident = segsum::resident_ctas(kern, smem);
+    const long long resident = min_resident(kern, smem);
     const long long fw = (n + kFrontBits - 1) / kFrontBits;
-    const long long tiles = (long long)p * ((E + segsum::kTile - 1) / segsum::kTile);
-    const long long groups = (long long)p * ((n + 31) / 32) / segsum::kWarps;
+    const long long tiles = (long long)rows * ((E + segsum::kTile - 1) / segsum::kTile);
+    const long long groups = (long long)rows * ((n + 31) / 32) / segsum::kWarps;
     const int grid = segsum::persistent_grid(resident, tiles > groups ? tiles : groups);
     auto* nchg = static_cast<unsigned long long*>(scratch);
     uint2* tv = reinterpret_cast<uint2*>(nchg + 2);
-    int* acc = reinterpret_cast<int*>(tv + (size_t)p * n);
-    unsigned* front = reinterpret_cast<unsigned*>(acc + (size_t)p * n);
-    int* chg = reinterpret_cast<int*>(front + (size_t)p * fw);
-    void* args[] = {&ls, &ld, &w, &v, &o, &nchg, &tv, &acc, &front, &chg, &it, &flag, &tk,
-                    &max_passes, &p, &E, &n, &inner_cap, &vec};
+    int* acc = reinterpret_cast<int*>(tv + (size_t)rows * n);
+    unsigned* front = reinterpret_cast<unsigned*>(acc + (size_t)rows * n);
+    int* chg = reinterpret_cast<int*>(front + (size_t)rows * fw);
+    void* args[] = {&ls, &ld, &w, &v, &o, &nchg, &tv, &acc, &front, &chg, &it, &flag, &tk, &lv,
+                    &max_passes, &rows, &p, &E, &n, &inner_cap, &vec};
     e = cudaLaunchCooperativeKernel(kern, grid, segsum::kThreads, args, smem, s);
   } else if (combine == 1) {
     double* carry_v = static_cast<double*>(scratch);
     const long long slots = 2 * ((E + segsum::kTile - 1) / segsum::kTile);
-    float* share = reinterpret_cast<float*>(carry_v + p * slots);
-    int* carry_d = reinterpret_cast<int*>(share + (size_t)p * n);
-    const long long total = (long long)p * n;
-    const int vec4 = segsum::aligned16(v) && segsum::aligned16(deg) && segsum::aligned16(share);
+    float* share = reinterpret_cast<float*>(carry_v + rows * slots);
+    int* carry_d = reinterpret_cast<int*>(share + (size_t)rows * n);
+    const long long total = (long long)rows * n, deg_total = (long long)p * n;
+    // A vector of 4 must not wrap around the out degrees' end.
+    const int vec4 = segsum::aligned16(v) && segsum::aligned16(deg) &&
+                     segsum::aligned16(share) && (deg_total % 4 == 0 || deg_total == total);
     bsp_share_kernel<<<(total + 4 * kThreads - 1) / (4 * kThreads), kThreads, 0, s>>>(
-        v, deg, share, it, total, p, vec4);
+        v, deg, share, it, total, deg_total, rows, vec4);
     static const long long resident =
         segsum::resident_ctas(reinterpret_cast<const void*>(bsp_sum_kernel));
-    const int grid = segsum::persistent_grid(resident, p * slots / 2);
+    const int grid = segsum::persistent_grid(resident, rows * slots / 2);
     bsp_sum_kernel<<<grid, segsum::kThreads, 0, s>>>(ls, ld, w, share, o, carry_d, carry_v, flag,
-                                                     p, E, n, vec);
-    bsp_carry_kernel<<<(p * slots + kThreads - 1) / kThreads, kThreads, 0, s>>>(
-        carry_d, carry_v, o, p, slots, n);
+                                                     rows, p, E, n, vec);
+    bsp_carry_kernel<<<(rows * slots + kThreads - 1) / kThreads, kThreads, 0, s>>>(
+        carry_d, carry_v, o, rows, slots, n);
     e = cudaGetLastError();
   } else {
     return (int)cudaErrorInvalidValue;

@@ -126,7 +126,7 @@ __global__ void __launch_bounds__(segsum::kThreads, 4)
   grid.sync();
   // The stream may be in any order of destinations: every run goes into
   // the accumulator by an f64 atomic.
-  segsum::for_tiles(lsrc, ldst, w, 1, E, vec != 0,
+  segsum::for_tiles(lsrc, ldst, w, 1, 1, E, vec != 0,
                     [&](const segsum::Edges& edges, long long, long long, long long e0) {
                       segsum::tile_sum<true>(edges, val, E, e0, V, n, err,
                                              [&](int d, double v, int, int) {

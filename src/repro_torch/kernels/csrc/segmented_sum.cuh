@@ -205,31 +205,32 @@ __device__ __forceinline__ void tile_sum(Edges in, const float* __restrict__ g, 
   tile_scan<SumF64>(in.d, x, emit);
 }
 
-// Walk the tiles of `rows` streams of E edges each (row r at ls + r * E,
-// ...) with a persistent grid, a tile a CTA at a time, and call
-// on_tile(edges, r, j, e0) for this thread's edges of tile j (counted over
-// all rows) of row r, which start at edge e0 of the row. A CTA loads its
-// next tile before it hands over the current one, so that the stream's
-// loads stay in flight through the gathers and the scan.
+// Walk the tiles of `rows` rows of E edges each with a persistent grid, a
+// tile a CTA at a time, and call on_tile(edges, r, j, e0) for this
+// thread's edges of tile j (counted over all rows) of row r, which start
+// at edge e0 of the row. Row r reads stream r % stream_rows (at
+// ls + (r % stream_rows) * E, ...): rows past the streams share them. A
+// CTA loads its next tile before it hands over the current one, so that
+// the stream's loads stay in flight through the gathers and the scan.
 template <typename OnTile>
 __device__ __forceinline__ void for_tiles(const int* __restrict__ ls, const int* __restrict__ ld,
-                                          const float* __restrict__ w, int rows, long long E,
-                                          bool vec, OnTile&& on_tile) {
+                                          const float* __restrict__ w, int rows,
+                                          int stream_rows, long long E, bool vec,
+                                          OnTile&& on_tile) {
   const long long per_row = (E + kTile - 1) / kTile, total = per_row * rows;
   const long long off = (long long)threadIdx.x * kEdges;
   Edges cur, nxt;
   long long j = blockIdx.x;
   if (j < total) {
-    const long long r = j / per_row;
-    load_edges(cur, ls + r * E, ld + r * E, w + r * E, E, (j - r * per_row) * kTile + off, vec);
+    const long long r = j / per_row, s = (r % stream_rows) * E;
+    load_edges(cur, ls + s, ld + s, w + s, E, (j - r * per_row) * kTile + off, vec);
   }
   for (; j < total; j += gridDim.x) {
     const long long r = j / per_row, e0 = (j - r * per_row) * kTile + off;
     const long long jn = j + gridDim.x;
     if (jn < total) {
-      const long long rn = jn / per_row;
-      load_edges(nxt, ls + rn * E, ld + rn * E, w + rn * E, E, (jn - rn * per_row) * kTile + off,
-                 vec);
+      const long long rn = jn / per_row, s = (rn % stream_rows) * E;
+      load_edges(nxt, ls + s, ld + s, w + s, E, (jn - rn * per_row) * kTile + off, vec);
     }
     on_tile(cur, r, j, e0);
     cur = nxt;

@@ -38,6 +38,8 @@ NVCC_FLAGS = (
 )
 
 # Kernel launches by kernel name; each CUDA wrapper adds one per launch.
+# A CUDA graph's replay launches with no Python: the launches its capture
+# recorded (`captured_launches`) are added at every replay (`add_launches`).
 LAUNCHES: collections.Counter = collections.Counter()
 
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -47,6 +49,22 @@ _THREAD = threading.local()
 
 def reset_launches() -> None:
     LAUNCHES.clear()
+
+
+def captured_launches(fn) -> collections.Counter:
+    """Call `fn` (which a CUDA graph is capturing) and return the launches
+    its wrappers counted, taken back out of `LAUNCHES`: a capture launches
+    nothing; each replay of the graph launches them (`add_launches`)."""
+    before = collections.Counter(LAUNCHES)
+    fn()
+    made = collections.Counter({k: v - before[k] for k, v in LAUNCHES.items() if v > before[k]})
+    LAUNCHES.subtract(made)
+    return made
+
+
+def add_launches(counts: collections.Counter) -> None:
+    """Count the launches of one replay of a captured graph."""
+    LAUNCHES.update(counts)
 
 
 def resolve_device(device=None) -> torch.device:

@@ -60,7 +60,7 @@ def segment_max(lsrc, ldst, weight, val, *, num_out: int, block_e: int = 512):
 
 
 def bsp_superstep(lsrc, ldst, weight, val, *, num_out: int, combine: str = "min",
-                  inner_cap: int = 1, out_degree=None, block_e: int = 512, err=None):
+                  inner_cap: int = 1, out_degree=None, block_e: int = 512, err=None, live=None):
     """Whole-local-stage BSP superstep for a batch of workers.
 
     combine="min" iterates the min-plus relaxation to local convergence
@@ -71,21 +71,24 @@ def bsp_superstep(lsrc, ldst, weight, val, *, num_out: int, combine: str = "min"
     An id outside [0, num_out) raises ValueError; with `err` (a zeroed
     int32 [1] tensor on the stream's device) the kernel ORs its id guard's
     bits into it instead, for the caller to read when it syncs
-    (`bsp_superstep.check_flag`).
-    Returns (new_val [p, num_out] f32, per-worker inner iterations [p] int32).
+    (`bsp_superstep.check_flag`). `val` may hold a batch's B·p rows, row r
+    on stream row r % p; `live` (min and max: a bool [B]) leaves the rows
+    of a query that is not live as they are, with 0 iterations.
+    Returns (new_val [R, num_out] f32, per-worker inner iterations [R] int32).
     """
     if combine not in ("min", "max", "sum"):
         raise ValueError(f"combine must be 'min', 'max' or 'sum', got {combine!r}")
     if combine == "max":
         out, iters = bsp_superstep(lsrc, ldst, weight, -val, num_out=num_out, combine="min",
-                                   inner_cap=inner_cap, block_e=block_e, err=err)
+                                   inner_cap=inner_cap, block_e=block_e, err=err, live=live)
         return -out, iters
     if (combine == "sum") != (out_degree is not None):
         raise ValueError("out_degree is required for combine='sum' and only then")
     identity = 0.0 if combine == "sum" else INF
     lsrc, ldst, weight = pad_stream(lsrc, ldst, weight, num_out=num_out, block_e=block_e,
                                     identity=identity)
-    kw = dict(num_out=num_out, combine=combine, inner_cap=inner_cap, out_degree=out_degree)
+    kw = dict(num_out=num_out, combine=combine, inner_cap=inner_cap, out_degree=out_degree,
+              live=live)
     if err is None:
         return _bsp.bsp_superstep(lsrc, ldst, weight, val, **kw)
     return _bsp.launch_flagged(lsrc, ldst, weight, val, err=err, **kw)

@@ -63,6 +63,26 @@ Phases; a failed check raises and the script exits non-zero:
               before; every answer against the BFS oracle from its
               source, the first batch of each program against single
               host-driver runs, bitwise; one {"serve": ...} stdout line.
+              Then crash and resume (launch counts zeroed just before and
+              read just after): CC on the symmetric build, SSSP and PR
+              (20 steps) on the directed one, each through
+              GraphPipeline.run checkpointed every k supersteps with a
+              crash planned at superstep s (RESILIENCE), resumed by
+              resume_bsp once by the fused and once by the host driver:
+              values and every BSPStats field equal to the uninterrupted
+              fused run, bitwise; snapshot bytes, save and resume walls,
+              new captures. Then the out-of-core pipeline (launch counts
+              zeroed just before and read just after): the graph written
+              to a shard store on local disk (shards of 2^20 edges), its
+              degrees (equal to the graph's) and the external degree-sum
+              order, partition_store (ebv, block 4,096) with its state on
+              the card, against the in-memory driver's stream on the card:
+              the order, the assignments in stream and input order and the
+              counters, bitwise; edges/s and the counters' RF beside
+              partition_metrics'. On twitter_like the same partition, then
+              the streamed build of edge_part_stream against build_subgraphs
+              on the same partition (every field) and CC on both (labels,
+              every stat; the labels against label propagation).
               Then each kernel is held against its plain
               version at these shapes and timed beside its bound, its plain
               version and the nearest single PyTorch call: segment_reduce
@@ -101,7 +121,9 @@ import argparse
 import json
 import subprocess
 import sys
+import tempfile
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -178,6 +200,12 @@ HASH_FAMILY = ("hash", "dbh", "cvc")  # the baselines that run on the card
 SERVE = dict(queries=64, rate_qps=2000.0, mix=(("bfs", 0.5), ("sssp", 0.5)), seed=0,
              max_batch=8)
 BATCH_B = 8  # the batched superstep launch timed at full width (BFS)
+# Crash and resume at full width: (program, checkpoint_every, crash_at_superstep),
+# each crash after at least one snapshot past superstep 0.
+RESILIENCE = (("cc", 1, 2), ("sssp", 2, 2), ("pr", 5, 12))
+# The out-of-core pipeline: shards of 2^20 edges, blocks of 4,096 (the
+# default of partition_store).
+OUT_OF_CORE = dict(shard_edges=1 << 20, block=4096)
 
 
 def log(msg: str) -> None:
@@ -979,10 +1007,14 @@ def phase_full(dev, log2_edges):
     st.s["drivers"] = time.perf_counter() - t
     serve, batch_sources = phase_serve(g, pipe, dev)
     st.s["serve"] = serve["phase_s"]
+    resilience = phase_resilience(pipe, runs)
+    st.s["resilience"] = resilience["phase_s"]
+    outofcore = phase_outofcore(g, dev)
+    st.s["outofcore"] = outofcore["phase_s"]
 
     summary = dict(
         vertices=V, edges=g.num_edges, parts=PARTS, stage_s=st.s, launches=launches,
-        drivers=drivers, serve=serve,
+        drivers=drivers, serve=serve, resilience=resilience, outofcore=outofcore,
         metrics=dict(replication_factor=m.replication_factor, edge_imbalance=m.edge_imbalance,
                      vertex_imbalance=m.vertex_imbalance),
         components=components, source=source,
@@ -992,6 +1024,14 @@ def phase_full(dev, log2_edges):
               for p, r in runs.items()},
     )
     kernels = measure_kernels(g, pipe, runs, launches, dev, batch_sources, serve["launches"])
+    for e in kernels:  # the launches on the two new paths, beside the main path's
+        e["resilience_launches"] = resilience["launches"].get(e["name"], 0)
+        e["outofcore_launches"] = outofcore["launches"].get(e["name"], 0)
+    next(e for e in kernels if e["name"] == "ebg_commit").update(
+        outofcore_block=OUT_OF_CORE["block"],
+        outofcore_stream_ms=outofcore["commit_stream_ms"],
+        outofcore_stream_ms_per_block=outofcore["commit_ms_per_block"],
+        outofcore_block_call_ms=outofcore["block_call_ms"])
     summary["hash_family"] = measure_hash_family(g, dev)
     return summary, kernels
 
@@ -1077,6 +1117,296 @@ def phase_serve(g, pipe, dev):
                           for n, q, b, w in server._batch_log],
                phase_s=time.perf_counter() - t0)
     return out, bfs_sources
+
+
+# ----------------------------- full width: checkpoint/resume and out-of-core
+
+
+def phase_resilience(pipe, runs):
+    """Crash and resume at full width on the main path's builds: each
+    program of RESILIENCE runs through GraphPipeline.run checkpointed every
+    k supersteps with a crash planned at superstep s, twice — resumed by the
+    fused driver, and resumed by the host driver. Each resumed run's values
+    and every BSPStats field equal the main path's uninterrupted fused run,
+    bitwise. Launch counts are zeroed just before and read just after the
+    phase. Snapshots go to a temporary directory, removed at the end."""
+    from repro_torch.checkpoint import ckpt as ckpt_mod
+    from repro_torch.graph import engine
+    from repro_torch.kernels import dispatch
+    from repro_torch.resilience import FaultPlan, WorkerCrashError, resume_bsp
+
+    t0 = time.perf_counter()
+    save = ckpt_mod.save
+    saves = dict(n=0, s=0.0)
+
+    def timed_save(*a, **kw):  # the snapshot writes' wall, inside the crash runs
+        t = time.perf_counter()
+        out = save(*a, **kw)
+        saves["s"] += time.perf_counter() - t
+        saves["n"] += 1
+        return out
+
+    out = {}
+    dispatch.reset_launches()
+    ckpt_mod.save = timed_save
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as tmp:
+            for prog, every, crash in RESILIENCE:
+                base = runs[prog]
+                check(crash < base.stats.supersteps,
+                      f"resilience {prog}: crash at {crash} is past the run's end")
+                rows = {}
+                for driver in ("fused", "host"):
+                    ckpt = Path(tmp) / f"{prog}_{driver}"
+                    captures = dict(engine.CAPTURES)
+                    saves.update(n=0, s=0.0)
+                    sync()
+                    t = time.perf_counter()
+                    try:
+                        pipe.run(prog, checkpoint_every=every, ckpt_dir=ckpt,
+                                 fault_plan=FaultPlan(crash_at_superstep=crash))
+                        raise AssertionError(f"resilience {prog}: no crash at superstep {crash}")
+                    except WorkerCrashError as e:
+                        check(e.superstep == crash, f"resilience {prog}: crashed at {e.superstep}")
+                    sync()
+                    crash_s = time.perf_counter() - t
+                    steps = sorted(int(d.name.split("_")[1]) for d in ckpt.glob("step_*"))
+                    check(steps == list(range(0, crash + 1, every)),
+                          f"resilience {prog}: snapshots at {steps}")
+                    snap_bytes = sum(f.stat().st_size for f in (ckpt / f"step_{steps[-1]:08d}")
+                                     .iterdir())
+                    save_n, save_s = saves["n"], saves["s"]
+                    t = time.perf_counter()
+                    val, stats = resume_bsp(base.subgraphs, ckpt_dir=ckpt, driver=driver)
+                    sync()
+                    resume_s = time.perf_counter() - t
+                    check(same_run(types.SimpleNamespace(values=val[:, :-1].cpu().numpy(),
+                                                         stats=stats), base),
+                          f"resilience {prog}: the run resumed by the {driver} driver differs "
+                          "from the uninterrupted one")
+                    new = {k: engine.CAPTURES[k] - captures.get(k, 0) for k in ("loops", "graphs")}
+                    rows[driver] = dict(crash_run_s=crash_s, snapshots=steps,
+                                        snapshot_bytes=snap_bytes, saves=save_n, save_s=save_s,
+                                        resume_s=resume_s, resumed_from=steps[-1],
+                                        new_captures=new)
+                    log(f"resilience {prog}: crash at {crash} (k={every}) in {crash_s:.2f} s, "
+                        f"{save_n} snapshots of {snap_bytes} bytes in {save_s:.3f} s; resumed by "
+                        f"the {driver} driver from {steps[-1]} in {resume_s:.3f} s: equal values "
+                        f"and stats; new loops/graphs {new}")
+                out[prog] = dict(checkpoint_every=every, crash_at=crash,
+                                 supersteps=base.stats.supersteps, **rows)
+    finally:
+        ckpt_mod.save = save
+    launches = dict(dispatch.LAUNCHES)
+    for k in ("bsp_superstep.min", "bsp_superstep.sum"):
+        check(launches.get(k, 0) > 0, f"the resilience path launched {k} no time")
+    log(f"resilience: launches {launches}")
+    return dict(programs=out, launches=launches, phase_s=time.perf_counter() - t0)
+
+
+def phase_outofcore(g, dev):
+    """The out-of-core pipeline at full width: the graph written to a shard
+    store on local disk, its degrees and the external degree-sum order,
+    then partition_store (ebv, p=32, block 4,096) with its state on the
+    card, launch counts zeroed just before and read just after. Against the
+    in-memory driver's stream on the card (prepare_stream and one
+    ebg_commit_stream, the body of streaming_chunked_partition): the order,
+    the assignments in stream and input order and the counters, bitwise;
+    the counters' RF beside partition_metrics'. Then, on twitter_like (the
+    full-width build would pass the time limit), the streamed build from
+    edge_part_stream against build_subgraphs on the same partition (every
+    field), and CC on both. The store and the order's buckets go to a
+    temporary directory, removed at the end."""
+    from repro_torch.core import outofcore as oc
+    from repro_torch.core.metrics import partition_metrics
+    from repro_torch.core.streaming import prepare_stream
+    from repro_torch.data import edgeshards as es
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels import ebg_commit as ebg
+
+    t0 = time.perf_counter()
+    st = Stages()
+    block = OUT_OF_CORE["block"]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_shards_") as tmp:
+        store = st("oc_write", es.write_graph, g, Path(tmp) / "store",
+                   shard_edges=OUT_OF_CORE["shard_edges"])
+        deg = st("oc_degrees", es.degrees_from_shards, store)
+        check(np.array_equal(deg, g.degrees()), "degrees_from_shards differs from the graph's")
+        ordered = st("oc_order", es.degree_sum_stream, store, deg, workdir=Path(tmp) / "order")
+        disk = sum(f.stat().st_size for f in Path(tmp).rglob("*") if f.is_file())
+        dispatch.reset_launches()
+        res = st("oc_partition", oc.partition_store, store, PARTS, "ebv", block=block,
+                 degrees=deg, ordered=ordered, device=dev)
+        launches = dict(dispatch.LAUNCHES)
+        check(launches.get("ebg_commit", 0) > 0, "the out-of-core path launched ebg_commit no time")
+        check(res.result.part.device.type == "cuda", "the out-of-core partition is not on the card")
+        host_split = st("oc_host_side", outofcore_host_side, ordered, g.num_vertices, block, dev)
+    log(f"outofcore: partition_store's host side alone (its group loop with no commit): "
+        f"{host_split}")
+    E = g.num_edges
+
+    # The in-memory driver's stream at the same block, with its counters;
+    # the kernel timed apart (CUDA events), and one block's wrapper call
+    # (ebg_commit_block: argument checks, the id check, both transposes),
+    # which partition_store would pay once a block if it fed blocks alone.
+    timing = {}
+
+    def in_memory():
+        mem = prepare_stream(g, PARTS, "ebv", block=block, device=dev)
+        keep, e_c, v_c = mem.new_state(PARTS, g.num_vertices)
+        t0e, t1e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0e.record()
+        parts = ebg.ebg_commit_stream(keep, e_c, v_c, mem.u, mem.v, mem.valid, mem.coef,
+                                      block=block, balance=mem.balance)
+        t1e.record()
+        t1e.synchronize()
+        timing["commit_stream_ms"] = t0e.elapsed_time(t1e)
+        # The same stream at block 2,048, the largest block whose staging
+        # fits the pipelined kernel at p = 32 (timing only; its padding is
+        # whole blocks of 2,048 too).
+        half = block // 2
+        fresh = mem.new_state(PARTS, g.num_vertices)
+        t0e.record()
+        ebg.ebg_commit_stream(*fresh, mem.u, mem.v, mem.valid, mem.coef, block=half,
+                              balance=mem.balance)
+        t1e.record()
+        t1e.synchronize()
+        timing["commit_stream_ms_half_block"] = t0e.elapsed_time(t1e)
+        timing["half_block"] = half
+        mid = slice((res.num_blocks // 2) * block, (res.num_blocks // 2 + 1) * block)
+        args = (keep, e_c, v_c, mem.u[mid], mem.v[mid], mem.valid[mid], mem.coef)
+        timing["block_call_ms"] = cuda_ms(lambda: ebg.ebg_commit_block(*args), reps=20)
+        return mem.order, parts[:E], e_c, v_c
+
+    launches_partition = dict(launches)
+    order, parts, e_c, v_c = st("oc_in_memory", in_memory)
+    timing["commit_ms_per_block"] = timing["commit_stream_ms"] / res.num_blocks
+    log(f"outofcore: the commit kernel at block {block}: {timing['commit_stream_ms']:.1f} ms "
+        f"the stream, {timing['commit_ms_per_block'] * 1e3:.2f} µs a block; at block "
+        f"{timing['half_block']}: {timing['commit_stream_ms_half_block']:.1f} ms the stream; one "
+        f"ebg_commit_block call {timing['block_call_ms']:.3f} ms")
+    check(np.array_equal(res.result.order.numpy(), order),
+          "degree_sum_stream's permutation differs from degree_sum_order's")
+    check(torch.equal(res.result.part, parts), "the out-of-core assignments differ (stream order)")
+    in_input = np.empty(E, np.int32)
+    in_input[order] = parts.cpu().numpy()
+    check(np.array_equal(res.result.part_in_input_order(), in_input),
+          "the out-of-core assignments differ (input order)")
+    check(np.array_equal(res.e_count, e_c.cpu().numpy()) and
+          np.array_equal(res.v_count, v_c.cpu().numpy()), "the out-of-core counters differ")
+    m = st("oc_metrics", partition_metrics, g, res.result)
+    check(np.array_equal(res.e_count, m.edges_per_part.astype(np.float32)),
+          "the edge counters differ from partition_metrics'")
+    check(bool((res.v_count >= m.vertices_per_part).all()),
+          "a vertex counter is below partition_metrics' |V_i|")
+    part_s = st.s["oc_partition"]
+    log(f"outofcore: partition_store == the in-memory stream (order, parts, counters); "
+        f"{launches.get('ebg_commit', 0)} ebg_commit launches, {E / part_s:.4g} edges/s "
+        f"({E / (part_s + st.s['oc_order']):.4g} with the order); RF counters "
+        f"{res.replication_factor:.6f}, partition_metrics {m.replication_factor:.6f}")
+    row = dict(edges=E, blocks=res.num_blocks, disk_bytes=disk, stage_s=dict(st.s),
+               launches=launches, partition_launches=launches_partition, **timing,
+               host_side_s=host_split,
+               edges_per_s=E / part_s,
+               edges_per_s_with_order=E / (part_s + st.s["oc_order"]),
+               rf_counters=res.replication_factor, rf_metrics=m.replication_factor,
+               edge_imbalance=m.edge_imbalance, vertex_imbalance=m.vertex_imbalance)
+    del res, parts, e_c, v_c, order
+    row["build"] = outofcore_build(dev)
+    # The phase's: both partition_store runs (full width, twitter_like) and
+    # CC on the streamed build, each counted around its own call.
+    for path in ("partition_launches", "cc_launches"):
+        for k, v in row["build"][path].items():
+            launches[k] = launches.get(k, 0) + v
+    row["phase_s"] = time.perf_counter() - t0
+    return row
+
+
+def outofcore_host_side(ordered, num_vertices, block, dev):
+    """partition_store's host work a group, timed by itself: the ordered
+    stream's bucket reads and sorts, the intake validation, and the padding
+    with its upload to the card (synchronized), with no commit."""
+    from repro_torch.core import outofcore as oc
+    from repro_torch.core.streaming import pad_blocks, validate_edge_stream
+
+    group = block * max(1, oc.GROUP_EDGES // block)
+    split = dict(read_s=0.0, validate_s=0.0, upload_s=0.0)
+    blocks = ordered.iter_blocks(group)
+    while True:
+        t = time.perf_counter()
+        item = next(blocks, None)
+        split["read_s"] += time.perf_counter() - t
+        if item is None:
+            return split
+        gsrc, gdst, _ = item
+        t = time.perf_counter()
+        validate_edge_stream(gsrc, gdst, num_vertices=num_vertices)
+        split["validate_s"] += time.perf_counter() - t
+        t = time.perf_counter()
+        pad_blocks(gsrc, gdst, None, block, dev)
+        sync()
+        split["upload_s"] += time.perf_counter() - t
+
+
+def outofcore_build(dev):
+    """twitter_like through the out-of-core pipeline on the card, then the
+    streamed build of its partition (symmetric) and CC: every SubgraphSet
+    field against build_subgraphs on the same partition (the edge list in
+    the partition's stream order), CC's labels and every stat against CC on
+    that build and the labels against label propagation."""
+    from repro_torch.core import outofcore as oc
+    from repro_torch.core.types import Graph, PartitionResult
+    from repro_torch.data import edgeshards as es
+    from repro_torch.graph import algorithms as alg
+    from repro_torch.graph.build import ARRAY_FIELDS, build_subgraphs
+    from repro_torch.graph.build_stream import build_subgraphs_stream
+    from repro_torch.graph.engine import run_bsp
+    from repro_torch.graph.generate import make_graph
+    from repro_torch.kernels import dispatch
+
+    st = Stages()
+    tw = make_graph("twitter_like")
+    V = tw.num_vertices
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tw_") as tmp:
+        store = es.write_graph(tw, Path(tmp) / "store", shard_edges=OUT_OF_CORE["shard_edges"])
+        dispatch.reset_launches()
+        res = st("tw_partition", oc.partition_store, store, PARTS, "ebv",
+                 block=OUT_OF_CORE["block"], order_workdir=Path(tmp) / "order", device=dev)
+        partition_launches = dict(dispatch.LAUNCHES)
+        check(partition_launches.get("ebg_commit", 0) > 0,
+              "partition_store on twitter_like launched ebg_commit no time")
+        sub = st("tw_build_stream", build_subgraphs_stream,
+                 lambda: res.edge_part_stream(OUT_OF_CORE["shard_edges"]), V, PARTS,
+                 symmetrize=True, device=dev)
+    order = res.result.order
+    in_stream = Graph(src=tw.src[order], dst=tw.dst[order], num_vertices=V)
+    ref = st("tw_build", build_subgraphs, in_stream,
+             PartitionResult(part=res.result.part, num_parts=PARTS), symmetrize=True, device=dev)
+    for f in ARRAY_FIELDS:
+        check(torch.equal(getattr(sub, f), getattr(ref, f)), f"streamed build: field {f} differs")
+    check((sub.num_parts, sub.max_v, sub.max_e, sub.max_msg, sub.addressing) ==
+          (ref.num_parts, ref.max_v, ref.max_e, ref.max_msg, ref.addressing),
+          "streamed build: sizes differ")
+    dispatch.reset_launches()
+    val, stats = st("tw_cc_stream", run_bsp, sub, "cc")
+    cc_launches = dict(dispatch.LAUNCHES)
+    check(cc_launches.get("bsp_superstep.min", 0) > 0, "CC on the streamed build launched no min")
+    val2, stats2 = run_bsp(ref, "cc")
+    check(same_run(types.SimpleNamespace(values=val.cpu().numpy(), stats=stats),
+                   types.SimpleNamespace(values=val2.cpu().numpy(), stats=stats2)),
+          "CC on the streamed build differs from CC on the in-memory build")
+    cov = tw.covered_vertices()
+    labels = oracle_labels(tw.src.to(dev).long(), tw.dst.to(dev).long(), V, "amin").cpu().numpy()
+    got = alg.scatter_to_global(sub, val[:, :-1].cpu().numpy(), V)
+    check(np.array_equal(got[cov], labels[cov]), "CC on the streamed build: labels differ")
+    log(f"outofcore twitter_like: streamed build == build_subgraphs (every field); CC "
+        f"{stats.supersteps} supersteps, {stats.total_messages} messages, == the in-memory "
+        f"build's and label propagation; RF (counters) {res.replication_factor:.6f}; "
+        f"launches: partition_store {partition_launches}, CC on the streamed build "
+        f"{cc_launches}")
+    return dict(edges=tw.num_edges, stage_s=dict(st.s), cc_supersteps=stats.supersteps,
+                cc_messages=stats.total_messages, rf_counters=res.replication_factor,
+                partition_launches=partition_launches, cc_launches=cc_launches)
 
 
 # -------------------------------------- full width: kernels at their shapes

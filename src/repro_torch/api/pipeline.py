@@ -213,7 +213,10 @@ class GraphPipeline:
         is ported. `driver` selects the step loop ("fused", the default, or
         "host"; identical values and stats). Extra kwargs flow to `run_bsp`
         (max_supersteps, inner_cap, exchange_period, tol, block_e,
-        num_iters — the PageRank alias of max_supersteps — and damping)."""
+        num_iters — the PageRank alias of max_supersteps — and damping),
+        the fault-tolerance knobs among them: `checkpoint_every=k` with
+        `ckpt_dir=` snapshots every k supersteps and `fault_plan=` injects
+        a crash (`repro_torch.resilience.resume_bsp` continues the run)."""
         if driver is not None:
             kw["driver"] = check_driver(driver)
         if mode != "sim":

@@ -180,16 +180,54 @@ def validate_edge_stream(src, dst, *, num_vertices: int, weights=None) -> None:
             raise ValueError(f"weights[{row}] = {float(w[row])!r} must be finite and >= 0")
 
 
+def degree_weights_np(deg32: np.ndarray, src: np.ndarray, dst: np.ndarray
+                      ) -> tuple[np.ndarray, np.ndarray]:
+    """The replication term's per-edge weights 2 − d/(du+dv) in f32, from
+    exact total degrees `deg32` (f32), as the reference computes them."""
+    du, dv = deg32[src], deg32[dst]
+    tot = du + dv
+    return np.float32(2.0) - du / tot, np.float32(2.0) - dv / tot
+
+
 def edge_weights_np(scorer: EdgeScorer, graph: Graph, src: np.ndarray, dst: np.ndarray
                     ) -> Optional[tuple[np.ndarray, np.ndarray]]:
     """Per-edge replication-term weights (wu, wv) as f32 numpy, or None;
     host-side from exact total degrees, as the reference computes them."""
     if not scorer.weighted:
         return None
-    deg = graph.degrees().astype(np.float32)
-    du, dv = deg[src], deg[dst]
-    tot = du + dv
-    return np.float32(2.0) - du / tot, np.float32(2.0) - dv / tot
+    return degree_weights_np(graph.degrees().astype(np.float32), src, dst)
+
+
+def stream_coefficients(ce: float, cv: float, eps: float, *, num_parts: int, num_edges: int,
+                        num_vertices: int, device) -> torch.Tensor:
+    """The commit kernel's [5] f32 coefficient vector, with the balance
+    normalizers in f32 as the reference computes them: float32(p) /
+    float32(real edge count), float32(p) / float32(V)."""
+    p = np.float32(num_parts)
+    return ops.commit_coefficients(alpha=ce, beta=cv, inv_e=p / np.float32(max(num_edges, 1)),
+                                   inv_v=p / np.float32(num_vertices), eps=eps, device=device)
+
+
+def pad_blocks(src: np.ndarray, dst: np.ndarray, w: Optional[tuple[np.ndarray, np.ndarray]],
+               block: int, device):
+    """A stretch of the stream as the commit kernel takes it, on `device`:
+    (u, v, valid, wu, wv), padded to whole blocks with self-loops on vertex
+    0, masked out of the commit (and dropped from the result); their 1.0
+    weights keep the scored lanes finite. The in-memory driver pads its
+    whole stream here, the out-of-core driver each group of blocks, so the
+    two feed the kernel the same lanes."""
+    n = src.shape[0]
+    padded = -(-n // block) * block
+
+    def put(a, fill, dtype):
+        out = np.full(padded, fill, dtype)
+        out[:n] = a
+        return torch.from_numpy(out).to(device)
+
+    wu = wv = None
+    if w is not None:
+        wu, wv = put(w[0], 1.0, np.float32), put(w[1], 1.0, np.float32)
+    return (put(src, 0, np.int32), put(dst, 0, np.int32), put(True, False, bool), wu, wv)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -237,33 +275,12 @@ def prepare_stream(graph: Graph, num_parts: int, scorer: Union[str, EdgeScorer],
         order = np.asarray(order, dtype=np.int64)
         src, dst = src[order], dst[order]
     w = edge_weights_np(sc, graph, src, dst)
-    E, V, p = src.shape[0], graph.num_vertices, num_parts
-    pad = (-E) % block
-    valid = np.ones((E + pad,), bool)
-    if pad:
-        # Pad with self-loops on vertex 0, masked out of the commit (and
-        # dropped from the result); 1.0 keeps the scored lanes finite.
-        src = np.concatenate([src, np.zeros((pad,), np.int32)])
-        dst = np.concatenate([dst, np.zeros((pad,), np.int32)])
-        valid[E:] = False
-        if w is not None:
-            one = np.ones((pad,), np.float32)
-            w = (np.concatenate([w[0], one]), np.concatenate([w[1], one]))
-    # The balance normalizers in f32, as the reference computes them:
-    # float32(p) / float32(real edge count), float32(p) / float32(V).
-    inv_e = np.float32(p) / np.float32(max(E, 1))
-    inv_v = np.float32(p) / np.float32(V)
-    coef = ops.commit_coefficients(alpha=ce, beta=cv, inv_e=inv_e, inv_v=inv_v, eps=eps,
-                                   device=dev)
-
-    def put(a):
-        return torch.from_numpy(a).to(dev)
-
-    return EdgeStream(
-        u=put(src), v=put(dst), valid=put(valid),
-        wu=None if w is None else put(w[0]), wv=None if w is None else put(w[1]),
-        coef=coef, num_edges=E, order=order, balance=sc.balance, block=block,
-    )
+    E = src.shape[0]
+    u, v, valid, wu, wv = pad_blocks(src, dst, w, block, dev)
+    coef = stream_coefficients(ce, cv, eps, num_parts=num_parts, num_edges=E,
+                               num_vertices=graph.num_vertices, device=dev)
+    return EdgeStream(u=u, v=v, valid=valid, wu=wu, wv=wv, coef=coef, num_edges=E, order=order,
+                      balance=sc.balance, block=block)
 
 
 def _partition(graph: Graph, num_parts: int, sc: EdgeScorer, *, window: bool, **kw

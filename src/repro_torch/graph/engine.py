@@ -895,7 +895,12 @@ class _FusedLoop:
         only the first `queries` rows are real and the padding rows behind
         them start done (no step, no pass: their values stay the init's).
         Returns (the final exec values, a copy; steps per query; msgs
-        [S, B, p]; iters [S, B, p]; edges [p]) with the stats on the host."""
+        [S, B, p]; iters [S, B, p]; edges [p]; converged per query) with
+        everything but the values on the host. The converged flags tell a
+        run that reached its fixpoint on its last step from one that ran
+        out of steps: the segmented driver (`resilience.bsp`) stops on
+        the first instead of running a superstep the uninterrupted run
+        never ran."""
         self.val.copy_(init)
         if self.last_ex is not None:
             self.last_ex.copy_(init)
@@ -912,10 +917,10 @@ class _FusedLoop:
                 if bool(self.stop):  # the run's one host sync a chunk
                     break
         HOST_SYNCS[driver] += 1
-        steps_q, msgs, iters, edges, bad = (t.cpu().numpy().astype(np.int64) for t in (
-            self.steps_q, self.msgs, self.iters, self.edges, self.plan.err))
+        steps_q, msgs, iters, edges, bad, done = (t.cpu().numpy().astype(np.int64) for t in (
+            self.steps_q, self.msgs, self.iters, self.edges, self.plan.err, self.done))
         check_flag(int(bad[0]), self.plan.lsrc, self.plan.ldst, self.plan.num_out)
-        return self.val.clone(), steps_q, msgs, iters, edges
+        return self.val.clone(), steps_q, msgs, iters, edges, done.astype(bool)
 
 
 def _fused_loop(prog: VertexProgram, sub: SubgraphSet, batch: int, *, max_supersteps: int,
@@ -954,6 +959,9 @@ def run_bsp(
     driver: str = "fused",
     block_e: int = 512,
     device=None,
+    checkpoint_every: Optional[int] = None,
+    ckpt_dir=None,
+    fault_plan=None,
 ) -> tuple[torch.Tensor, BSPStats]:
     """THE simulation-mode driver: runs any `VertexProgram` (instance or
     registered name) on the device of `sub` (or moves `sub` to `device`).
@@ -976,9 +984,28 @@ def run_bsp(
     makes anyway; an id outside [0, num_out) raises ValueError.
     Returns (values [p, max_v+1] in the program's dtype, BSPStats); the
     values and every stat match the reference's fused and host drivers.
+
+    Fault tolerance: `checkpoint_every=k` with `ckpt_dir=` snapshots the
+    value carry and the per-step stats every k supersteps through
+    `repro_torch.checkpoint.ckpt`, and `fault_plan=` (a
+    `repro_torch.resilience.FaultPlan`) injects a worker crash at a
+    superstep; `repro_torch.resilience.resume_bsp` continues from the last
+    snapshot to the uninterrupted run's values and stats, bit for bit. Any
+    of the three routes the run through the segmented driver of
+    `repro_torch.resilience.bsp` (the same values and stats).
     """
     if device is not None:
         sub = sub.to(device)
+    if checkpoint_every is not None or ckpt_dir is not None or fault_plan is not None:
+        # Deferred import: resilience builds on this module.
+        from repro_torch.resilience.bsp import run_bsp_resilient
+
+        return run_bsp_resilient(
+            sub, program, init_val, max_supersteps=max_supersteps, inner_cap=inner_cap,
+            exchange_period=exchange_period, tol=tol, num_vertices=num_vertices,
+            source=source, driver=driver, block_e=block_e,
+            checkpoint_every=checkpoint_every, ckpt_dir=ckpt_dir, fault_plan=fault_plan,
+        )
     prog = get_program(program)
     check_int32_kernel_labels(prog, sub)
     check_pagerank_num_vertices(prog, num_vertices)
@@ -988,43 +1015,65 @@ def run_bsp(
     _check_staleness(prog, exchange_period)
     exec_prog, val, negate, codec = _exec_values(prog, sub, init_val, num_vertices, source)
 
+    out, msgs, iters, edges, steps, _ = _run_segment(
+        driver, exec_prog, sub, val, start=0, count=max_supersteps, inner_cap=inner_cap,
+        exchange_period=exchange_period, tol=tol, num_vertices=num_vertices, block_e=block_e,
+    )
+    return _from_exec(prog, out, negate, codec), _assemble_stats(steps, msgs, iters, edges)
+
+
+def _run_segment(driver, exec_prog, sub, val, *, start, count, inner_cap, exchange_period, tol,
+                 num_vertices, block_e):
+    """Supersteps start .. start+count-1 (fewer once converged) of either
+    driver from exec values `val` [p, n]; `start` sits on an exchange
+    boundary. A whole run is one segment from 0; the segmented driver
+    (`resilience.bsp`) runs several. The fused driver runs the cached loop
+    (on the card a replay of its graph); the host driver syncs once a
+    superstep. Returns (values [p, n], msgs [steps, p], iters [steps, p],
+    edges [p] as int64 numpy, steps run, converged?)."""
     if driver == "fused":
-        loop = _fused_loop(exec_prog, sub, 1, max_supersteps=max_supersteps, inner_cap=inner_cap,
+        loop = _fused_loop(exec_prog, sub, 1, max_supersteps=count, inner_cap=inner_cap,
                            exchange_period=exchange_period, tol=tol, num_vertices=num_vertices,
                            block_e=block_e)
-        out, steps_q, msgs, iters, edges = loop.run(val[None], "fused")
+        out, steps_q, msgs, iters, edges, done = loop.run(val[None], "fused")
         DISPATCH_COUNTS["fused"] += 1
         steps = int(steps_q[0])
-        stats = _assemble_stats(steps, msgs[:steps, 0], iters[:steps, 0], edges)
-        return _from_exec(prog, out[0], negate, codec), stats
-    return _host_bsp(prog, exec_prog, sub, val, negate, codec, max_supersteps=max_supersteps,
-                     inner_cap=inner_cap, exchange_period=exchange_period, tol=tol,
-                     num_vertices=num_vertices, block_e=block_e)
-
-
-def _host_bsp(prog, exec_prog, sub, val, negate, codec, *, max_supersteps, inner_cap,
-              exchange_period, tol, num_vertices, block_e):
-    """The host driver: one superstep and one host sync per iteration."""
+        return out[0], msgs[:steps, 0], iters[:steps, 0], edges, steps, bool(done[0])
     plan = _plan_for(exec_prog, sub, block_e)
     plan.err.zero_()
-    val = val[None]
-    p = sub.num_parts
-    dev = sub.device
-    msgs_buf = torch.zeros((max_supersteps, p), dtype=torch.int32, device=dev)
-    iters_buf = torch.zeros((max_supersteps, p), dtype=torch.int32, device=dev)
-    steps = 0
+    out, msgs, iters, steps, converged = _host_steps(
+        exec_prog, sub, plan, val[None], start=start, count=count, inner_cap=inner_cap,
+        exchange_period=exchange_period, tol=tol, num_vertices=num_vertices,
+    )
+    HOST_SYNCS["host"] += 1
+    msgs, iters, edges, bad = (t.cpu().numpy().astype(np.int64) for t in (
+        msgs, iters, sub.edge_mask.sum(dim=1), plan.err))
+    check_flag(int(bad[0]), plan.lsrc, plan.ldst, plan.num_out)
+    return out[0], msgs, iters, edges, steps, converged
+
+
+def _host_steps(exec_prog, sub, plan, val, *, start, count, inner_cap, exchange_period, tol,
+                num_vertices):
+    """Supersteps start .. start+count-1 of the host driver on exec values
+    `val` [1, p, n], one host sync each for the convergence flag; `start`
+    sits on an exchange boundary (the value is the last exchanged one).
+    Returns (values, msgs [steps, p], iters [steps, p] on the device, steps
+    run, converged?)."""
+    p, dev = sub.num_parts, sub.device
+    msgs_buf = torch.zeros((count, p), dtype=torch.int32, device=dev)
+    iters_buf = torch.zeros((count, p), dtype=torch.int32, device=dev)
+    steps, converged = 0, False
     last_ex = val
-    for k in range(max_supersteps):
+    for k in range(start, start + count):
         do_ex = (k % exchange_period) == exchange_period - 1
         v2, msgs, iters, delta = _superstep(
             exec_prog, sub, plan, val, inner_cap, do_ex, last_ex, num_vertices,
         )
         DISPATCH_COUNTS["host"] += 1
-        msgs_buf[k] = msgs[0]
-        iters_buf[k] = iters[0]
+        msgs_buf[steps] = msgs[0]
+        iters_buf[steps] = iters[0]
         steps += 1
         if exec_prog.convergence == "tol":
-            converged = False
             if tol:
                 HOST_SYNCS["host"] += 1
                 converged = bool(delta[0] < tol)
@@ -1036,20 +1085,12 @@ def _host_bsp(prog, exec_prog, sub, val, negate, codec, *, max_supersteps, inner
                                         plan.err[0]]).tolist()
             check_flag(bad, plan.lsrc, plan.ldst, plan.num_out)
             converged = not changed
-        else:
-            converged = False
         if do_ex:
             last_ex = v2
         val = v2
         if converged:
             break
-
-    HOST_SYNCS["host"] += 1
-    edges = sub.edge_mask.sum(dim=1)
-    msgs_sw, iters_sw, edges, bad = (t.cpu().numpy().astype(np.int64) for t in (
-        msgs_buf[:steps], iters_buf[:steps], edges, plan.err))
-    check_flag(int(bad[0]), plan.lsrc, plan.ldst, plan.num_out)
-    return _from_exec(prog, val[0], negate, codec), _assemble_stats(steps, msgs_sw, iters_sw, edges)
+    return val, msgs_buf[:steps], iters_buf[:steps], steps, converged
 
 
 # ------------------------------------------------------------ batched driver
@@ -1123,7 +1164,7 @@ def _resolve_batch_args(sub, program, *, max_supersteps, num_vertices, exchange_
 def _run_batch_loop(loop: _FusedLoop, prog: VertexProgram, sub: SubgraphSet,
                     init_vals: torch.Tensor, queries: Optional[int] = None):
     exec_prog, vals, negate, codec = _to_exec(prog, sub, init_vals.to(sub.device))
-    out, steps_q, msgs, iters, edges = loop.run(vals, "batch", queries)
+    out, steps_q, msgs, iters, edges, _ = loop.run(vals, "batch", queries)
     DISPATCH_COUNTS["batch"] += 1
     return _from_exec(prog, out, negate, codec), _assemble_batch_stats(steps_q, msgs, iters, edges)
 

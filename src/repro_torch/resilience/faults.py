@@ -15,8 +15,8 @@ The plan vocabulary:
 
   * crash_at_superstep s  — the BSP run dies when about to execute
     superstep s (0-based: exactly s supersteps complete first), raising
-    `WorkerCrashError` (the checkpointed driver that takes it is not
-    ported yet).
+    `WorkerCrashError`; `resume_bsp` (resilience/bsp.py) continues from
+    the run's last checkpoint.
   * transient_error_prob q — an execution attempt in the serving tier
     fails with `TransientBackendError` with probability q, optionally
     targeted at one compute backend / driver path (so degradation to

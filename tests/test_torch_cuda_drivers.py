@@ -205,3 +205,80 @@ def test_cuda_batch_matches_singles(card_pipe, prog):
         assert torch.equal(vals[b], v1) and torch.equal(vals2[b], v1), f"query {b}"
         assert_stats_equal(stats[b], s1)
         assert_stats_equal(stats2[b], s1)
+
+
+# ------------------------------------------- checkpoint/resume on the card
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prog,every,crash", [("cc", 1, 2), ("sssp", 2, 2), ("pr", 5, 12)])
+def test_cuda_fused_segment_resume_matches_captured_run(card_pipe, tmp_path, prog, every,
+                                                        crash):
+    """A fused run checkpointed every `every` supersteps crashes at `crash`;
+    resume_bsp finishes it on the card: the uninterrupted captured run's
+    values and every stat, bitwise. Each new segment length captures its
+    own graph once: a second crash/resume of the same run captures nothing
+    and launches the superstep kernel only by replays."""
+    from repro_torch.resilience import FaultPlan, WorkerCrashError, resume_bsp
+
+    sub = _sub(card_pipe, prog)
+    kw = _kw(card_pipe, prog, **({"max_supersteps": 20} if prog == "pr" else {}))
+    base, base_stats = eng.run_bsp(sub, prog, driver="fused", **kw)
+    crash = min(crash, base_stats.supersteps - 1)
+    for attempt in range(2):
+        captures = dict(eng.CAPTURES)
+        ckpt = tmp_path / f"run{attempt}"
+        with pytest.raises(WorkerCrashError):
+            eng.run_bsp(sub, prog, checkpoint_every=every, ckpt_dir=ckpt,
+                        fault_plan=FaultPlan(crash_at_superstep=crash), **kw)
+        dispatch.reset_launches()
+        val, stats = resume_bsp(sub, ckpt_dir=ckpt)
+        kernel = "bsp_superstep.sum" if prog == "pr" else "bsp_superstep.min"
+        assert dispatch.LAUNCHES[kernel] > 0
+        assert torch.equal(val, base), f"attempt {attempt}"
+        assert_stats_equal(stats, base_stats)
+        if attempt:
+            assert dict(eng.CAPTURES) == captures  # every segment loop was warm
+        else:
+            assert eng.CAPTURES["graphs"] > captures.get("graphs", 0)
+        # The same crash resumed by the host driver.
+        host_val, host_stats = resume_bsp(sub, ckpt_dir=ckpt, driver="host")
+        assert torch.equal(host_val, base)
+        assert_stats_equal(host_stats, base_stats)
+
+
+# -------------------------------------- the out-of-core partition on the card
+
+
+@pytest.fixture(scope="module")
+def card_store(tmp_path_factory):
+    from repro_torch.data import edgeshards as es
+
+    g = rmat(1 << 12, 1 << 14, seed=5)
+    return es.write_graph(g, tmp_path_factory.mktemp("card_store") / "s", shard_edges=5000)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block", [128, 4096])
+@pytest.mark.parametrize("parts", [32, 64])
+def test_cuda_partition_store_matches_cpu(cuda_device, card_store, tmp_path, parts, block):
+    """partition_store with its state on the card (the CUDA commit) against
+    the same call on the CPU (the plain commit): assignments in stream and
+    input order and both counters, bitwise; the kernel launched once a
+    group of blocks."""
+    from repro_torch.core import outofcore as oc
+
+    dispatch.reset_launches()
+    card = oc.partition_store(card_store, parts, "ebv", block=block, device=cuda_device,
+                              order_workdir=tmp_path / "o")
+    launches = dispatch.LAUNCHES["ebg_commit"]
+    assert launches == -(-card_store.num_edges // (block * max(1, oc.GROUP_EDGES // block)))
+    assert card.result.part.device.type == "cuda"
+    cpu = oc.partition_store(card_store, parts, "ebv", block=block, device="cpu",
+                             order_workdir=tmp_path / "o2")
+    assert torch.equal(card.result.part.cpu(), cpu.result.part)
+    np.testing.assert_array_equal(card.result.part_in_input_order(),
+                                  cpu.result.part_in_input_order())
+    np.testing.assert_array_equal(card.e_count, cpu.e_count)
+    np.testing.assert_array_equal(card.v_count, cpu.v_count)
+    assert card.num_blocks == cpu.num_blocks

@@ -83,6 +83,21 @@ Phases; a failed check raises and the script exits non-zero:
               the streamed build of edge_part_stream against build_subgraphs
               on the same partition (every field) and CC on both (labels,
               every stat; the labels against label propagation).
+              Then the distributed path on a NCCL world of this process
+              alone (launch counts zeroed just before each run and read
+              just after): the stepper with all 32 subgraphs on rank 0,
+              CC and REACH on the symmetric build, SSSP, BFS and PR on the
+              directed one, cold and warm, each equal to the main path's
+              fused run (values and every stat, bitwise), its walls and
+              host syncs beside the fused and host drivers';
+              GraphPipeline.run("cc", mode="dist") at p = 1 on
+              twitter_like against mode="sim"; and partition_store's
+              sharded layout on twitter_like (ebv, frozen, block 256, one
+              commit launch and one all_gather a block) against the
+              replicated one: the order, the parts and the counters,
+              bitwise, with edges/s of each. With two cards or more, a
+              NCCL world of 2 (one rank a card) also runs CC's full-width
+              stepper; with one card the log says it did not.
               Then each kernel is held against its plain
               version at these shapes and timed beside its bound, its plain
               version and the nearest single PyTorch call: segment_reduce
@@ -119,6 +134,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -206,6 +222,9 @@ RESILIENCE = (("cc", 1, 2), ("sssp", 2, 2), ("pr", 5, 12))
 # The out-of-core pipeline: shards of 2^20 edges, blocks of 4,096 (the
 # default of partition_store).
 OUT_OF_CORE = dict(shard_edges=1 << 20, block=4096)
+# The sharded out-of-core layout's block on twitter_like (one launch and
+# one all_gather a block).
+DIST_SHARDED_BLOCK = 256
 
 
 def log(msg: str) -> None:
@@ -1011,10 +1030,13 @@ def phase_full(dev, log2_edges):
     st.s["resilience"] = resilience["phase_s"]
     outofcore = phase_outofcore(g, dev)
     st.s["outofcore"] = outofcore["phase_s"]
+    distributed = phase_distributed(pipe, runs, drivers, dev)
+    st.s["distributed"] = distributed["phase_s"]
 
     summary = dict(
         vertices=V, edges=g.num_edges, parts=PARTS, stage_s=st.s, launches=launches,
         drivers=drivers, serve=serve, resilience=resilience, outofcore=outofcore,
+        distributed=distributed,
         metrics=dict(replication_factor=m.replication_factor, edge_imbalance=m.edge_imbalance,
                      vertex_imbalance=m.vertex_imbalance),
         components=components, source=source,
@@ -1027,6 +1049,8 @@ def phase_full(dev, log2_edges):
     for e in kernels:  # the launches on the two new paths, beside the main path's
         e["resilience_launches"] = resilience["launches"].get(e["name"], 0)
         e["outofcore_launches"] = outofcore["launches"].get(e["name"], 0)
+        e["dist_launches"] = distributed["stepper_launches"].get(e["name"], 0)
+        e["sharded_launches"] = distributed["sharded_launches"].get(e["name"], 0)
     next(e for e in kernels if e["name"] == "ebg_commit").update(
         outofcore_block=OUT_OF_CORE["block"],
         outofcore_stream_ms=outofcore["commit_stream_ms"],
@@ -1409,6 +1433,237 @@ def outofcore_build(dev):
                 partition_launches=partition_launches, cc_launches=cc_launches)
 
 
+# ------------------------------------------------------ the distributed path
+
+
+def phase_distributed(pipe, runs, drivers, dev):
+    """The distributed engine on a NCCL world of this process alone (rank 0
+    on the card, a `file://` rendezvous in a temporary directory): the
+    stepper at full width with all 32 subgraphs on rank 0 (CC and REACH on
+    the symmetric build, SSSP, BFS and PR on the directed one), each held
+    against the main path's fused run, values and every stat bitwise, its
+    wall and host syncs beside the fused and host drivers'; then
+    GraphPipeline.run(mode="dist") at p = 1 on twitter_like against
+    mode="sim"; then partition_store's sharded layout on twitter_like
+    (ebv, frozen, block 256, state on the card) against the replicated
+    layout: the order, the parts and the counters, bitwise, and edges/s of
+    each. Launch counts are zeroed just before each of those runs and read
+    just after. With two cards or more, a NCCL world of 2 also runs the
+    full-width CC stepper on two cards (`dist_world2`)."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+
+    t0 = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dist_") as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/rendezvous", rank=0,
+                                world_size=1, timeout=datetime.timedelta(seconds=300))
+        try:
+            mesh = make_host_mesh()
+            # NCCL sets its communicator up at the first collective: pay it here.
+            t = time.perf_counter()
+            dist.all_reduce(torch.ones(1, device=dev))
+            sync()
+            out["nccl_setup_s"] = time.perf_counter() - t
+            out["stepper"], out["stepper_launches"] = dist_stepper(pipe, runs, drivers, mesh)
+            out["pipeline_p1"] = dist_pipeline_p1(mesh, dev)
+            out["sharded"], out["sharded_launches"] = dist_sharded(mesh, dev, Path(tmp))
+        finally:
+            dist.destroy_process_group()
+        out["world2"] = dist_world2(pipe, runs, Path(tmp))
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"distributed: phase {out['phase_s']:.1f} s")
+    return out
+
+
+def dist_stepper(pipe, runs, drivers, mesh):
+    """Each program through make_distributed_stepper at the main path's
+    knobs (run_bsp's defaults), against its fused run."""
+    from repro_torch.graph import engine
+    from repro_torch.kernels import dispatch
+
+    V = pipe.graph.num_vertices
+    rows, launches = {}, {}
+    for prog in PROGRAMS:
+        P = engine.get_program(prog)
+        sub = pipe.subgraphs_for(symmetrize=P.bidirectional)
+        arrays, statics = engine.subgraphs_to_arrays(sub)
+        runner = engine.make_distributed_stepper(
+            mesh, "workers", P, statics, num_supersteps=P.default_steps or 200,
+            inner_cap=10_000, num_vertices=V)
+        init = P.init(sub, num_vertices=V,
+                      source=pipe.default_source() if P.needs_source else None)
+        edges = sub.edge_mask.sum(dim=1).cpu().numpy().astype(np.int64)
+        row = dict(fused_warm_s=drivers[prog]["fused_warm_s"], host_s=drivers[prog]["host_s"])
+        # Cold: the first call cuts the shard and builds its run plan;
+        # warm: the same runner again. Launches are counted on the cold run.
+        for run in ("cold", "warm"):
+            syncs = engine.HOST_SYNCS["dist"]
+            if run == "cold":
+                dispatch.reset_launches()
+            sync()
+            t = time.perf_counter()
+            val, _, steps, ms, its = runner(arrays, init)
+            row[f"dist_{run}_s"] = time.perf_counter() - t
+            row["dist_syncs"] = engine.HOST_SYNCS["dist"] - syncs
+            if run == "cold":
+                for k, v in dispatch.LAUNCHES.items():
+                    launches[k] = launches.get(k, 0) + v
+            stats = engine._assemble_stats(steps, ms[:steps].numpy().astype(np.int64),
+                                           its[:steps].numpy().astype(np.int64), edges)
+            check(same_run(types.SimpleNamespace(values=val[:, :-1].numpy(), stats=stats),
+                           runs[prog]),
+                  f"distributed {prog}: the stepper ({run}) differs from the fused run")
+        row["supersteps"] = steps
+        rows[prog] = row
+        log(f"distributed {prog}: the stepper on NCCL (world 1, 32 subgraphs on rank 0) == the "
+            f"fused run, cold and warm; {steps} supersteps, cold {row['dist_cold_s'] * 1e3:.2f} "
+            f"ms, warm {row['dist_warm_s'] * 1e3:.2f} ms, {row['dist_syncs']} host syncs; fused "
+            f"(warm) {row['fused_warm_s'] * 1e3:.2f} ms, host {row['host_s'] * 1e3:.2f} ms")
+        del runner
+    for k in ("bsp_superstep.min", "bsp_superstep.sum"):
+        check(launches.get(k, 0) > 0, f"the distributed stepper launched {k} no time")
+    log(f"distributed: stepper launches {launches}")
+    return rows, launches
+
+
+def dist_pipeline_p1(mesh, dev):
+    from repro_torch.api.pipeline import GraphPipeline
+    from repro_torch.graph.generate import make_graph
+
+    pipe = GraphPipeline(make_graph("twitter_like"), device=dev).partition("ebg_chunked",
+                                                                           parts=1)
+    sim = pipe.run("cc")
+    sync()
+    t = time.perf_counter()
+    d = pipe.run("cc", mode="dist", mesh=mesh)
+    wall = time.perf_counter() - t
+    check(same_run(d, sim), "mode='dist' at p = 1 differs from mode='sim' (twitter_like CC)")
+    log(f"distributed: GraphPipeline.run('cc', mode='dist') at p = 1 on twitter_like == "
+        f"mode='sim' ({d.stats.supersteps} supersteps, {wall * 1e3:.1f} ms)")
+    return dict(supersteps=d.stats.supersteps, messages=d.stats.total_messages, dist_s=wall)
+
+
+def dist_sharded(mesh, dev, tmp):
+    """twitter_like's out-of-core partition with the bitset's rows sharded
+    over the mesh (one launch and one all_gather a block) against the
+    replicated layout (one launch a group of 256 blocks), both on one
+    degree-sum order."""
+    from repro_torch.core import outofcore as oc
+    from repro_torch.data import edgeshards as es
+    from repro_torch.graph.generate import make_graph
+    from repro_torch.kernels import dispatch
+
+    tw = make_graph("twitter_like")
+    store = es.write_graph(tw, tmp / "store", shard_edges=OUT_OF_CORE["shard_edges"])
+    deg = es.degrees_from_shards(store)
+    ordered = es.degree_sum_stream(store, deg, workdir=tmp / "order")
+    kw = dict(block=DIST_SHARDED_BLOCK, commit="frozen", degrees=deg, ordered=ordered,
+              device=dev)
+    sync()
+    t = time.perf_counter()
+    rep = oc.partition_store(store, PARTS, "ebv", **kw)
+    sync()
+    rep_s = time.perf_counter() - t
+    dispatch.reset_launches()
+    t = time.perf_counter()
+    sh = oc.partition_store(store, PARTS, "ebv", state_layout="sharded", mesh=mesh, **kw)
+    sync()
+    sh_s = time.perf_counter() - t
+    launches = dict(dispatch.LAUNCHES)
+    for k in ("ebg_commit", "ebg_commit.keep_to_memb", "ebg_commit.memb_to_keep"):
+        check(launches.get(k, 0) == sh.num_blocks, f"the sharded layout launched {k} "
+              f"{launches.get(k, 0)} times, not once a block ({sh.num_blocks})")
+    check(np.array_equal(sh.result.order.numpy(), rep.result.order.numpy()),
+          "sharded layout: the order differs")
+    check(torch.equal(sh.result.part, rep.result.part), "sharded layout: the parts differ")
+    check(np.array_equal(sh.e_count, rep.e_count) and np.array_equal(sh.v_count, rep.v_count),
+          "sharded layout: the counters differ")
+    E = tw.num_edges
+    row = dict(edges=E, block=DIST_SHARDED_BLOCK, blocks=sh.num_blocks, sharded_s=sh_s,
+               replicated_s=rep_s, sharded_edges_per_s=E / sh_s, replicated_edges_per_s=E / rep_s)
+    log(f"distributed: sharded out-of-core layout on twitter_like == replicated (order, parts, "
+        f"counters); {sh.num_blocks} blocks of {DIST_SHARDED_BLOCK}: sharded {sh_s:.2f} s "
+        f"({E / sh_s:.4g} edges/s), replicated {rep_s:.2f} s ({E / rep_s:.4g} edges/s); "
+        f"launches {launches}")
+    return row, launches
+
+
+def dist_world2(pipe, runs, tmp):
+    """With two cards or more: CC's full-width stepper on a NCCL world of
+    2, one rank a card (this script's --dist-child mode), against the
+    fused run."""
+    from repro_torch.graph import engine
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        log(f"distributed: {cards} card(s) here: no NCCL world of 2 runs (not a failure)")
+        return dict(ran=False, cards=cards)
+    sub = pipe.subgraphs_for(symmetrize=True)
+    arrays, statics = engine.subgraphs_to_arrays(sub)
+    work = tmp / "world2"
+    work.mkdir()
+    torch.save(dict(arrays={k: a.cpu() for k, a in arrays.items()}, statics=statics,
+                    init=engine.init_cc(sub).cpu()), work / "input.pt")
+    t = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--dist-child",
+                               str(work)], env=dict(os.environ, RANK=str(r), WORLD_SIZE="2",
+                                                    LOCAL_RANK=str(r)))
+             for r in range(2)]
+    try:
+        codes = [p.wait(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    check(codes == [0, 0], f"the NCCL world of 2 exited {codes}")
+    got = torch.load(work / "output.pt")
+    edges = sub.edge_mask.sum(dim=1).cpu().numpy().astype(np.int64)
+    stats = engine._assemble_stats(got["steps"], got["ms"][:got["steps"]].numpy().astype(np.int64),
+                                   got["its"][:got["steps"]].numpy().astype(np.int64), edges)
+    check(same_run(types.SimpleNamespace(values=got["val"][:, :-1].numpy(), stats=stats),
+                   runs["cc"]), "the NCCL world of 2: CC differs from the fused run")
+    wall = time.perf_counter() - t
+    log(f"distributed: a NCCL world of 2 on two cards ran CC at full width == the fused run "
+        f"({wall:.1f} s with the processes' start)")
+    return dict(ran=True, cards=cards, stepper_s=got["wall_s"], with_start_s=wall)
+
+
+def dist_child(work: Path) -> int:
+    """One rank of dist_world2: the stepper on the input's arrays."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch.graph import engine
+    from repro_torch.launch.mesh import make_host_mesh
+
+    rank = int(os.environ["RANK"])
+    torch.cuda.set_device(rank)
+    dist.init_process_group("nccl", init_method=f"file://{work}/rendezvous", rank=rank,
+                            world_size=int(os.environ["WORLD_SIZE"]),
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        job = torch.load(work / "input.pt")
+        dev = torch.device("cuda", rank)
+        arrays = {k: a.to(dev) for k, a in job["arrays"].items()}
+        runner = engine.make_distributed_stepper(make_host_mesh(), "workers", "cc",
+                                                 job["statics"], num_supersteps=200,
+                                                 inner_cap=10_000)
+        t = time.perf_counter()
+        val, _, steps, ms, its = runner(arrays, job["init"])
+        wall = time.perf_counter() - t
+        if rank == 0:
+            torch.save(dict(val=val, steps=steps, ms=ms, its=its, wall_s=wall),
+                       work / "output.pt")
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
 # -------------------------------------- full width: kernels at their shapes
 
 
@@ -1757,6 +2012,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--full-log2-edges", type=int, default=26,
                     help="log2 of the full-width edge count (V stays 2^22)")
+    ap.add_argument("--dist-child", type=Path, default=None,
+                    help=argparse.SUPPRESS)  # one rank of the distributed phase's world of 2
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on the card",
@@ -1764,6 +2021,9 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     import repro_torch  # noqa: F401  (fails outside the repository)
+
+    if args.dist_child is not None:
+        return dist_child(args.dist_child)
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)

@@ -1,11 +1,14 @@
 """`GraphPipeline` — the end-to-end facade over the paper's stack (port of
-`repro.api.pipeline`, simulation mode).
+`repro.api.pipeline`; its AOT half, `SubgraphSpec` and `.lower`, is not
+ported).
 
     run = GraphPipeline(graph).partition("ebg_chunked", parts=32).build().run("cc")
     run.stats.total_messages, run.metrics.replication_factor, run.to_global()
 
 The pipeline runs on one device: the CUDA card unless the caller passes
-`device="cpu"` (then every kernel runs its plain PyTorch version). Stages
+`device="cpu"` (then every kernel runs its plain PyTorch version);
+`run(mode="dist", mesh=...)` runs one subgraph a rank of a
+`torch.distributed` mesh (`repro_torch.launch.mesh.make_host_mesh`). Stages
 are lazy and cached on a shared partition-stage state, so fluent views are
 cheap: `.partition(...)` starts a fresh stage; `.build(...)` and repeated
 `.run(...)` calls on the same stage reuse the cached `PartitionResult`,
@@ -16,6 +19,7 @@ programs symmetrize; the rest keep edge direction).
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional, Union
 
 import numpy as np
@@ -29,11 +33,17 @@ from repro_torch.graph.build import SubgraphSet, build_subgraphs
 from repro_torch.graph.engine import (
     BSPStats,
     VertexProgram,
+    _assemble_stats,
+    _kernel_value_boundary,
     check_driver,
+    check_int32_kernel_labels,
     get_program,
+    make_distributed_stepper,
     run_bsp_batch,
+    subgraphs_to_arrays,
 )
 from repro_torch.kernels.dispatch import resolve_device
+from repro_torch.launch.mesh import axis_size
 
 ProgramLike = Union[str, VertexProgram]
 
@@ -60,6 +70,12 @@ def _translate_engine_kwargs(prog: VertexProgram, kw: dict) -> tuple[VertexProgr
     if "damping" in kw:
         prog = dataclasses.replace(prog, damping=float(kw.pop("damping")))
     return prog, kw
+
+
+def _normalize_axes(mesh, axes) -> tuple:
+    if axes is None:
+        return tuple(mesh.mesh_dim_names)
+    return (axes,) if isinstance(axes, str) else tuple(axes)
 
 
 class GraphPipeline:
@@ -209,27 +225,87 @@ class GraphPipeline:
         **kw,
     ) -> "PipelineRun":
         """Execute any registered program over the partitioned graph and
-        collect stats. Only mode="sim" (all workers batched on one device)
-        is ported. `driver` selects the step loop ("fused", the default, or
-        "host"; identical values and stats). Extra kwargs flow to `run_bsp`
-        (max_supersteps, inner_cap, exchange_period, tol, block_e,
-        num_iters — the PageRank alias of max_supersteps — and damping),
-        the fault-tolerance knobs among them: `checkpoint_every=k` with
-        `ckpt_dir=` snapshots every k supersteps and `fault_plan=` injects
-        a crash (`repro_torch.resilience.resume_bsp` continues the run)."""
+        collect stats. mode="sim" batches all workers on the pipeline's
+        device; mode="dist" runs one subgraph a rank of a `torch.distributed`
+        mesh (pass mesh=, and optionally axes=; the mesh's size must equal
+        the number of parts), called on every rank — both through the same
+        generic superstep, with the same values and stats. `driver` selects
+        the sim step loop ("fused", the default, or "host"; identical values
+        and stats). Extra kwargs flow to `run_bsp` (max_supersteps,
+        inner_cap, exchange_period, tol, block_e, num_iters — the PageRank
+        alias of max_supersteps — and damping), the fault-tolerance knobs
+        among them: `checkpoint_every=k` with `ckpt_dir=` snapshots every k
+        supersteps and `fault_plan=` injects a crash
+        (`repro_torch.resilience.resume_bsp` continues the run); mode="dist"
+        takes num_supersteps= (or max_supersteps= / num_iters=), inner_cap,
+        tol and block_e."""
         if driver is not None:
-            kw["driver"] = check_driver(driver)
-        if mode != "sim":
-            raise ValueError(f"mode {mode!r} is not ported; the port runs mode='sim'")
+            check_driver(driver)
+            if mode != "sim":
+                raise ValueError(
+                    "driver= applies to mode='sim' only; mode='dist' always runs "
+                    "the distributed stepper"
+                )
+            kw["driver"] = driver
+        if mode not in ("sim", "dist"):
+            raise ValueError(f"unknown mode {mode!r}; expected 'sim' or 'dist'")
         prog = _resolve_program(program)
         prog, kw = _translate_engine_kwargs(prog, kw)
         sub = self.subgraphs_for(**self._build_params_for(prog, symmetrize, pad_multiple))
         src = self._source_for(prog, source)
-        values, stats = alg.run_program(
-            sub, prog, num_vertices=self.graph.num_vertices, source=src, **kw
-        )
+        if mode == "sim":
+            values, stats = alg.run_program(
+                sub, prog, num_vertices=self.graph.num_vertices, source=src, **kw
+            )
+        else:
+            values, stats = self._run_distributed(prog, sub, source=src, **kw)
         return PipelineRun(pipeline=self, program=prog.name, values=values, stats=stats,
                            subgraphs=sub)
+
+    def _run_distributed(
+        self,
+        prog: VertexProgram,
+        sub: SubgraphSet,
+        *,
+        mesh,
+        axes=None,
+        num_supersteps: Optional[int] = None,
+        max_supersteps: Optional[int] = None,
+        inner_cap: int = 10_000,
+        tol: float = 0.0,
+        source: Optional[int] = None,
+        block_e: int = 512,
+    ) -> tuple[np.ndarray, BSPStats]:
+        """mode="dist": the distributed stepper over `mesh`, one subgraph a
+        rank; label-domain programs cross the kernels' value boundary as
+        ranks (decoded on the way out)."""
+        check_int32_kernel_labels(prog, sub)
+        if max_supersteps is not None:  # sim-speak (and the num_iters alias)
+            num_supersteps = max_supersteps
+        if num_supersteps is None:
+            num_supersteps = prog.default_steps or 30
+        axes = _normalize_axes(mesh, axes)
+        ndev = math.prod(axis_size(mesh, a) for a in axes)
+        if ndev != sub.num_parts:
+            raise ValueError(f"mesh axes {axes} span {ndev} devices but partition has "
+                             f"{sub.num_parts} parts")
+        arrays, statics = subgraphs_to_arrays(sub)
+        stepper = make_distributed_stepper(
+            mesh, axes, prog, statics,
+            num_supersteps=num_supersteps, inner_cap=inner_cap, tol=tol,
+            num_vertices=self.graph.num_vertices, block_e=block_e,
+        )
+        init = prog.init(sub, num_vertices=self.graph.num_vertices, source=source)
+        # Rank compression is order-preserving, so it commutes with the
+        # stepper's max→min negation; the output decodes below.
+        init, codec = _kernel_value_boundary(prog, sub, init)
+        val, _, steps, msgs_steps, iters_steps = stepper(arrays, init)
+        if codec is not None:
+            val = codec.decode(val.to(sub.device))
+        edges = as_numpy(sub.edge_mask.sum(dim=1)).astype(np.int64)
+        stats = _assemble_stats(steps, as_numpy(msgs_steps[:steps]).astype(np.int64),
+                                as_numpy(iters_steps[:steps]).astype(np.int64), edges)
+        return as_numpy(val[:, :-1]), stats
 
     def run_batch(
         self,

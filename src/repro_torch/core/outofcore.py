@@ -19,14 +19,27 @@ state is the reference's bitset layout (`compute_backend="ref"` /
 `partition_store(compute_backend="ref")`.
 
 State layouts:
-  state_layout="replicated"  one device holds the whole membership bitset.
-  state_layout="sharded"     membership rows sharded over a device mesh
-                             with a collective per block: it belongs to
-                             the distributed port and raises here.
+  state_layout="replicated"  one device holds the whole membership bitset;
+                             one `ebg_commit_stream` launch a group of
+                             whole blocks.
+  state_layout="sharded"     the bitset's rows sharded over the ranks of a
+                             `torch.distributed` mesh (p/w rows a rank; the
+                             counters replicated). A block's distinct
+                             endpoints are renumbered 0..k-1, each rank
+                             packs its rows' bits at them, one all_gather
+                             makes the block-local bitset [p, ⌈k/32⌉], and
+                             every rank runs the same `ebg_commit_block` on
+                             it and ORs the bits it added into its own rows:
+                             one launch and one all_gather a block. The
+                             commit reads only the bits of u and v (its
+                             `inv_v` comes from V, not the bitset's width),
+                             so the assignments and counters are the
+                             replicated layout's, bit for bit.
 
 Memory: O(p·V/32 + block) on the device for the state and a group of
-blocks; the edge list itself never materializes (blocks stream from disk;
-the per-edge assignment, int32, is the only O(E) array kept).
+blocks (O(p·V/(32·w) + p·block) a rank, sharded); the edge list itself
+never materializes (blocks stream from disk; the per-edge assignment,
+int32, is the only O(E) array kept).
 """
 from __future__ import annotations
 
@@ -35,6 +48,7 @@ from typing import Callable, Iterator, Optional, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.api.config import check_commit_mode
 from repro_torch.core.streaming import (
@@ -54,6 +68,7 @@ from repro_torch.data.edgeshards import (
 )
 from repro_torch.kernels import ebg_commit as _ebg
 from repro_torch.kernels.dispatch import resolve_device
+from repro_torch.launch.mesh import axes_group, make_host_mesh, mesh_size
 
 STATE_LAYOUTS = ("replicated", "sharded")
 
@@ -95,6 +110,53 @@ class OutOfCoreResult:
         return float(self.v_count.sum() / max(self.covered, 1))
 
 
+@dataclasses.dataclass
+class _ShardedRows:
+    """This rank's rows of the membership bitset under state_layout=
+    "sharded", and the mesh group the blocks' bits are gathered over."""
+
+    group: object
+    w: int
+    rows: slice  # this rank's parts
+    keep: torch.Tensor  # [p/w, ⌈V/32⌉] int32
+    bit_values: torch.Tensor  # [32] int32: the word of each single bit
+
+    @classmethod
+    def over(cls, mesh, p: int, V: int, dev: torch.device) -> "_ShardedRows":
+        w = mesh_size(mesh)
+        if p % w != 0:
+            raise ValueError(f"num_parts={p} must divide evenly over {w} mesh devices")
+        if mesh.device_type != dev.type:
+            raise ValueError(f"the mesh is on {mesh.device_type} but the partition state on "
+                             f"{dev}")
+        group, rank, _ = axes_group(mesh, tuple(mesh.mesh_dim_names))
+        pl = p // w
+        keep = torch.zeros((pl, (V + 31) // 32), dtype=torch.int32, device=dev)
+        bits = torch.tensor([_ebg._bit(b) for b in range(32)], dtype=torch.int32, device=dev)
+        return cls(group, w, slice(rank * pl, (rank + 1) * pl), keep, bits)
+
+    def commit_block(self, e_count, v_count, u, v, valid, coef, *, balance, window, wu, wv):
+        """One block: (new e_count, new v_count, parts [block])."""
+        B = u.shape[0]
+        ids, local_ids = torch.unique(torch.cat([u, v]), sorted=True, return_inverse=True)
+        ids = ids.long()
+        word = self.keep[:, ids >> 5]
+        mine = _ebg.pack_keep_bits(((word >> (ids & 31).to(torch.int32)) & 1).bool())
+        gathered = [torch.empty_like(mine) for _ in range(self.w)]
+        dist.all_gather(gathered, mine, group=self.group)
+        local_ids = local_ids.to(torch.int32)
+        kb, e_count, v_count, parts = _ebg.ebg_commit_block(
+            torch.cat(gathered), e_count, v_count, local_ids[:B], local_ids[B:], valid, coef,
+            balance=balance, window=window, wu=wu, wv=wv,
+        )
+        # The bits the commit added to this rank's rows, at distinct ids:
+        # no two of them are one bit, and none was set, so adding them
+        # into their words is their OR.
+        added = _ebg._unpack(kb[self.rows] & ~mine)[:, : ids.shape[0]]
+        self.keep.index_add_(1, ids >> 5, added.to(torch.int32) * self.bit_values[ids & 31])
+        return e_count, v_count, parts
+
+
 def partition_store(
     store: EdgeShardStore,
     num_parts: int,
@@ -107,6 +169,7 @@ def partition_store(
     sort_edges: Optional[bool] = None,
     commit: str = "frozen",
     state_layout: str = "replicated",
+    mesh=None,
     degrees: Optional[np.ndarray] = None,
     ordered: Optional[OrderedEdgeStream] = None,
     order_workdir=None,
@@ -124,15 +187,15 @@ def partition_store(
     `commit` is the chunked commit mode ("window" makes any block size
     bit-identical to the one-edge scan). Pass precomputed `degrees` / an
     `ordered` stream to reuse external passes.
+
+    `state_layout="sharded"` shards the bitset's rows over the ranks of
+    `mesh` (default `launch.mesh.make_host_mesh()`; its device type must be
+    `device`'s) and is called on every rank; num_parts must divide evenly
+    over the mesh. It commits one block a launch, with one all_gather a
+    block (see the module docstring), to the replicated layout's result.
     """
     check_commit_mode(commit)
     check_state_layout(state_layout)
-    if state_layout == "sharded":
-        raise ValueError(
-            "state_layout='sharded' shards the membership rows over a device mesh with "
-            "a collective per block; it belongs to the distributed port (ROADMAP §1, "
-            "the distributed stepper) and is not ported yet — use 'replicated'"
-        )
     dev = resolve_device(device)
     sc = get_scorer(scorer)
     ce, cv, eps = sc.coefficients(ce, cv, eps)
@@ -158,31 +221,42 @@ def partition_store(
     else:
         block_iter = store.iter_blocks
 
-    keep = torch.zeros((p, (V + 31) // 32), dtype=torch.int32, device=dev)
+    if state_layout == "sharded":
+        sharded = _ShardedRows.over(make_host_mesh() if mesh is None else mesh, p, V, dev)
+        group = block
+    else:
+        sharded = None
+        keep = torch.zeros((p, (V + 31) // 32), dtype=torch.int32, device=dev)
+        group = block * max(1, GROUP_EDGES // block)
     e_count = torch.zeros((p,), dtype=torch.float32, device=dev)
     v_count = torch.zeros((p,), dtype=torch.float32, device=dev)
     coef = stream_coefficients(ce, cv, eps, num_parts=p, num_edges=E, num_vertices=V,
                                device=dev)
     window = commit == "window"
-    group = block * max(1, GROUP_EDGES // block)
     parts_out: list[torch.Tensor] = []
     order_out: list[np.ndarray] = []
     num_blocks = 0
 
-    # A group of whole blocks is the ordered stream cut at a multiple of
-    # `block`, so its blocks are the stream's blocks; only the last group's
-    # last block may be short, padded with masked edges as the reference
-    # pads each block.
+    # A group of whole blocks (one block, sharded) is the ordered stream cut
+    # at a multiple of `block`, so its blocks are the stream's blocks; only
+    # the last group's last block may be short, padded with masked edges as
+    # the reference pads each block.
     for gsrc, gdst, gidx in block_iter(group):
         n = gsrc.shape[0]
         if validate:
             validate_edge_stream(gsrc, gdst, num_vertices=V)
         w = degree_weights_np(deg32, gsrc, gdst) if sc.weighted else None
         u, v, valid, wu, wv = pad_blocks(gsrc, gdst, w, block, dev)
-        parts = _ebg.ebg_commit_stream(
-            keep, e_count, v_count, u, v, valid, coef, block=block, balance=sc.balance,
-            window=window, wu=wu, wv=wv,
-        )
+        if sharded is not None:
+            e_count, v_count, parts = sharded.commit_block(
+                e_count, v_count, u, v, valid, coef, balance=sc.balance, window=window,
+                wu=wu, wv=wv,
+            )
+        else:
+            parts = _ebg.ebg_commit_stream(
+                keep, e_count, v_count, u, v, valid, coef, block=block, balance=sc.balance,
+                window=window, wu=wu, wv=wv,
+            )
         parts_out.append(parts[:n])
         order_out.append(np.asarray(gidx, np.int64))
         num_blocks += -(-n // block)

@@ -1,5 +1,5 @@
 """Subgraph-centric bulk-synchronous-parallel engine (paper §IV-B; port of
-`repro.graph.engine`, simulation mode).
+`repro.graph.engine`).
 
 One subgraph == one worker. A superstep is
   1. compute:   local work over the subgraph's own edges — a min-plus
@@ -33,8 +33,11 @@ every `BSPStats` field:
     superstep for the convergence flag.
 The batched driver (`run_bsp_batch`, `BatchExecutable`) is the fused loop
 over B queries with per-query masking, so each query's stats are its own
-run's. `DISPATCH_COUNTS` counts runs ("fused", "batch") and host
-supersteps ("host"); `HOST_SYNCS` counts the host syncs of each.
+run's. The distributed stepper (`make_distributed_stepper`) runs the same
+superstep with the p subgraphs sharded over the ranks of a
+`torch.distributed` device mesh and the exchange an all_to_all across
+them. `DISPATCH_COUNTS` counts runs ("fused", "batch") and host
+supersteps ("host", "dist"); `HOST_SYNCS` counts the host syncs of each.
 
 Messages are counted with delta semantics for semiring programs (a
 mirror/master "sends" only if its value changed since the last exchange —
@@ -57,11 +60,13 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.metrics import max_mean_ratio
 from repro_torch.graph.build import SubgraphSet, check_addressing
 from repro_torch.kernels import dispatch, ops
 from repro_torch.kernels.bsp_superstep import check_flag
+from repro_torch.launch.mesh import axes_group, mesh_device
 
 INF_F32 = 3.0e38  # the f32 "unreached" value (the kernels' min identity)
 INF_I32 = 2**31 - 1  # the int32 "unreached" value
@@ -71,10 +76,11 @@ INF_I32 = 2**31 - 1  # the int32 "unreached" value
 # superstep per Python iteration (the readable reference of the loop).
 DRIVERS = ("fused", "host")
 
-# Runs by driver: "fused" and "batch" add 1 a run, "host" 1 a superstep.
+# Runs by driver: "fused" and "batch" add 1 a run, "host" and "dist" (the
+# distributed stepper) 1 a superstep.
 DISPATCH_COUNTS: collections.Counter = collections.Counter()
-# Host syncs by driver ("fused", "host", "batch"): flag reads and the
-# stats' read at the end of a run.
+# Host syncs by driver ("fused", "host", "batch", "dist"): flag reads and
+# the stats' read at the end of a run.
 HOST_SYNCS: collections.Counter = collections.Counter()
 # Fused loops built ("loops") and CUDA graphs captured ("graphs"); a warm
 # run adds to neither.
@@ -341,17 +347,18 @@ def _gather_rows(val: torch.Tensor, idx: torch.Tensor, shape) -> torch.Tensor:
 
 def _scatter(val: torch.Tensor, idx: torch.Tensor, upd: torch.Tensor, reduce: str) -> torch.Tensor:
     """out[b, j, idx[j, i*m]] combined with upd[b, j, i, m] ("amin" | "sum" |
-    "set"); idx: [p, p*m] int64 (expanded over the batch, not copied), upd:
-    [B, p, p, m]. "sum" adds one sender i at a time, in sender order: within
-    a sender a destination occurs once (pads hit the dump slot with 0), so
-    no two adds race and the f32 sums are the same on every run and every
-    device (a single scatter-add on the card adds in the atomics' order)."""
+    "set"); idx: [rows, p*m] int64 (expanded over the batch, not copied),
+    upd: [B, rows, p, m] (rows = p, or a rank's shard of them). "sum" adds
+    one sender i at a time, in sender order: within a sender a destination
+    occurs once (pads hit the dump slot with 0), so no two adds race and
+    the f32 sums are the same on every run and every device (a single
+    scatter-add on the card adds in the atomics' order)."""
     B = val.shape[0]
     if reduce == "sum":
-        p = idx.shape[0]
-        idx = idx.reshape(p, p, -1)
+        senders = upd.shape[2]  # all p senders; the rows may be a rank's shard
+        idx = idx.reshape(idx.shape[0], senders, -1)
         out = val.clone()
-        for i in range(p):
+        for i in range(senders):
             out.scatter_add_(2, idx[:, i].expand(B, *idx[:, i].shape), upd[:, :, i])
         return out
     idx = idx.expand(B, *idx.shape)
@@ -396,7 +403,8 @@ def _relax_stream(prog: VertexProgram, sub: SubgraphSet):
 
 @dataclasses.dataclass(frozen=True)
 class _RunPlan:
-    """The run-invariant inputs of a superstep: the local stage's edge
+    """The run-invariant inputs of a superstep over the set's rows (all p
+    workers, or a rank's shard of them): the local stage's edge
     stream (padded to `block_e` at the dump slot) and, for sweeps, the
     out-degree with the dump slot's 1 appended; and the exchange tables as
     the int64 indices that gather/scatter take; and the device flag that
@@ -409,14 +417,17 @@ class _RunPlan:
     out_degree: Optional[torch.Tensor]
     num_out: int
     block_e: int
-    send_idx: torch.Tensor  # [p, p*max_msg] int64
-    recv_idx: torch.Tensor  # [p, p*max_msg] int64
-    bcast_idx: torch.Tensor  # [p, p*max_msg] int64: send_idx, dump slot where unmasked
+    send_idx: torch.Tensor  # [rows, p*max_msg] int64
+    recv_idx: torch.Tensor  # [rows, p*max_msg] int64
+    bcast_idx: torch.Tensor  # [rows, p*max_msg] int64: send_idx, dump slot where unmasked
     err: torch.Tensor  # [1] int32
 
 
 def _run_plan(prog: VertexProgram, sub: SubgraphSet, block_e: int) -> _RunPlan:
     num_out = sub.max_v + 1
+    # The rows the set holds: num_parts, or fewer on a rank's shard (whose
+    # tables are [rows, p, max_msg]).
+    rows = sub.send_idx.shape[0]
     if prog.local == "fixpoint":
         lsrc, ldst, w = _relax_stream(prog, sub)
         outdeg = None
@@ -424,17 +435,16 @@ def _run_plan(prog: VertexProgram, sub: SubgraphSet, block_e: int) -> _RunPlan:
     else:
         # Pads carry weight 0: the sum identity and the kernel's pad mask.
         lsrc, ldst, w = sub.lsrc, sub.ldst, sub.edge_mask.to(torch.float32)
-        ones = torch.ones((sub.num_parts, 1), dtype=torch.float32, device=sub.device)
+        ones = torch.ones((rows, 1), dtype=torch.float32, device=sub.device)
         outdeg = torch.cat([sub.out_degree, ones], dim=1)
         identity = 0.0
     lsrc, ldst, w = ops.pad_stream(lsrc, ldst, w, num_out=num_out, block_e=block_e,
                                    identity=identity)
-    p = sub.num_parts
     return _RunPlan(
         lsrc, ldst, w, outdeg, num_out, block_e,
-        send_idx=sub.send_idx.reshape(p, -1).long(),
-        recv_idx=sub.recv_idx.reshape(p, -1).long(),
-        bcast_idx=torch.where(sub.msg_mask, sub.send_idx, sub.max_v).reshape(p, -1).long(),
+        send_idx=sub.send_idx.reshape(rows, -1).long(),
+        recv_idx=sub.recv_idx.reshape(rows, -1).long(),
+        bcast_idx=torch.where(sub.msg_mask, sub.send_idx, sub.max_v).reshape(rows, -1).long(),
         err=torch.zeros((1,), dtype=torch.int32, device=lsrc.device),
     )
 
@@ -501,17 +511,24 @@ def _apply_step(prog: VertexProgram, sub: SubgraphSet, combined: torch.Tensor, n
 
 
 def _sim_exchange(S: torch.Tensor) -> torch.Tensor:
-    """[B, i, j, m] sender-rowed ↔ [B, j, i, m] receiver-rowed."""
+    """[B, i, j, m] sender-rowed ↔ [B, j, i, m] receiver-rowed: all p
+    workers on one device, so the exchange is a transpose."""
     return S.transpose(1, 2)
 
 
 def _superstep(prog: VertexProgram, sub: SubgraphSet, plan: _RunPlan, val: torch.Tensor,
                inner_cap: int, do_exchange: bool = True, count_ref=None, num_vertices: int = 0,
-               live=None):
+               live=None, exchange=_sim_exchange):
     """ONE BSP superstep for ANY program (exec view: f32 values, combine
-    "min" or "sum") over a batch of B queries: val [B, p, max_v+1] (a
-    single run is B = 1). Returns (new_val, per-worker msg count [B, p],
-    per-worker inner iters [B, p], per-query L1 delta [B] or None).
+    "min" or "sum") over a batch of B queries: val [B, rows, max_v+1] (a
+    single run is B = 1; rows = p, or a rank's shard of the workers).
+    Returns (new_val, per-worker msg count [B, rows], per-worker inner
+    iters [B, rows], per-query L1 delta over the rows [B] or None).
+
+    `exchange` maps [B, rows, p, m] tables rowed by the local workers to
+    the same shape rowed by the local workers and columned by the other
+    end: the transpose in simulation, an all_to_all across ranks in the
+    distributed stepper; it serves both directions.
 
     Stages: local compute → mirror→master exchange + combine → apply →
     master→mirror broadcast. `count_ref` is the value snapshot of the LAST
@@ -543,7 +560,7 @@ def _superstep(prog: VertexProgram, sub: SubgraphSet, plan: _RunPlan, val: torch
         msgs_fwd = (ch_send & sub.msg_mask).sum(dim=(2, 3))
     else:
         msgs_fwd = sub.msg_mask.sum(dim=(1, 2)).expand(B, p)
-    R = _sim_exchange(S)  # receiver-rowed [b, j, i, m]
+    R = exchange(S)  # receiver-rowed [b, j, i, m]
     upd = torch.where(sub.recv_mask, R, prog.identity)
     combined = _scatter(state, plan.recv_idx, upd, "sum" if prog.combine == "sum" else "amin")
 
@@ -555,7 +572,7 @@ def _superstep(prog: VertexProgram, sub: SubgraphSet, plan: _RunPlan, val: torch
         msgs_bwd = (ch_b & sub.recv_mask).sum(dim=(2, 3))
     else:
         msgs_bwd = sub.recv_mask.sum(dim=(1, 2)).expand(B, p)
-    Rb = _sim_exchange(Bm)  # sender-rowed view at mirrors: [b, i, j, m]
+    Rb = exchange(Bm)  # sender-rowed view at mirrors: [b, i, j, m]
     out = _scatter(new_val, plan.bcast_idx, Rb, "set")
 
     delta = None
@@ -1266,3 +1283,203 @@ def compile_batch_executable(
         loop.capture()
     return BatchExecutable(program=prog, sub=sub, batch=int(batch), loop=loop,
                            compile_s=time.perf_counter() - t0)
+
+
+# ------------------------------------------- distributed (torch.distributed)
+#
+# The paper's deployment: the p subgraphs sharded over the w ranks of a
+# device mesh, rank r holding the contiguous parts [r·p/w, (r+1)·p/w) (as
+# the reference's `P(axis)` lays them out under shard_map), and each
+# superstep's exchange an all_to_all over the mesh group. On the card the
+# group runs over NCCL, in the tests over gloo.
+
+_ARRAY_FIELDS = [
+    "lsrc", "ldst", "weight", "edge_mask",
+    "lsrc_s", "ldst_s", "weight_s", "edge_mask_s",
+    "gid", "vmask", "is_master", "out_degree",
+    "send_idx", "recv_idx", "msg_mask", "recv_mask",
+]
+_STATIC_FIELDS = ["num_parts", "max_v", "max_e", "max_msg", "addressing"]
+
+
+def subgraphs_to_arrays(sub: SubgraphSet) -> tuple[dict, dict]:
+    arrays = {k: getattr(sub, k) for k in _ARRAY_FIELDS}
+    statics = {k: getattr(sub, k) for k in _STATIC_FIELDS}
+    return arrays, statics
+
+
+def _a2a_exchange(group, w: int):
+    """The exchange across the w ranks of `group`, each holding nloc of the
+    p workers: [B, nloc, p, m] rowed by this rank's workers and columned by
+    all p → the same shape columned by the other end, whose index is
+    `src_rank·nloc + i` (the transpose of `_sim_exchange`, across ranks).
+    Regrouped by destination rank into one contiguous [w, B, nloc, nloc, m]
+    buffer, exchanged with one all_to_all_single (which concatenates by
+    source rank), and permuted back."""
+
+    def exchange(S: torch.Tensor) -> torch.Tensor:
+        B, nloc, p, m = S.shape
+        send = S.reshape(B, nloc, w, nloc, m).permute(2, 0, 1, 3, 4).contiguous()
+        recv = torch.empty_like(send)
+        dist.all_to_all_single(recv, send, group=group)
+        # recv[s, b, i, j, m]: from worker i of rank s to local worker j.
+        return recv.permute(1, 3, 0, 2, 4).reshape(B, nloc, p, m)
+
+    return exchange
+
+
+def make_distributed_stepper(
+    mesh,
+    axes,
+    prog,
+    statics: dict,
+    *,
+    num_supersteps: int,
+    inner_cap: int,
+    tol: float = 0.0,
+    num_vertices: int = 0,
+    block_e: int = 512,
+    fault_plan=None,
+):
+    """A BSP runner for ANY `VertexProgram` with the subgraphs sharded over
+    the ranks of the mesh dimensions `axes` (one name, or a tuple naming
+    every dimension of a mesh over the whole world, in order): w ranks,
+    w dividing p, rank r holding the contiguous parts [r·p/w, (r+1)·p/w).
+
+    The returned `runner(arrays, val)` is called on every rank with the
+    whole set's arrays (`subgraphs_to_arrays`, on any device) and initial
+    values [p, max_v+1] in the program's own domain; it copies its rows to
+    its mesh device (cached for the next call with the same arrays) and
+    returns, on every rank and on the host, what the reference's runner
+    returns: (values [p, max_v+1], msgs_total [p], steps, msgs_per_step
+    [num_supersteps, p], iters_per_step [num_supersteps, p]), the buffers
+    zero past `steps`.
+
+    Each superstep is the simulation's `_superstep` on the local rows with
+    the exchange an all_to_all_single over the mesh group (only the f32
+    values travel), then one all_reduce(SUM) of the convergence signal: an
+    int32 changed flag (no-change programs) or the f32 L1 delta against
+    `tol` (tol programs), so every rank takes the same trip count. The host
+    reads that flag once a superstep (none for a tol program with tol=0),
+    and one all_gather at the end assembles the values, the stats and the
+    kernels' id flags. The kernels run as everywhere: CUDA on the card, the
+    plain versions on the CPU. Max-combine programs are negated in and out
+    here, and int32 programs remapped to f32 once a run, after the 2^24
+    guard (flat addressing: the global ids; two-level: the carry's value
+    bound, plus the covered vertices for unit weights), which raises before
+    any collective.
+
+    `fault_plan=` (a `repro_torch.resilience.FaultPlan` with
+    `crash_at_superstep=s`) caps the loop at s supersteps and raises
+    `WorkerCrashError(superstep=s)` if it was still running then.
+    """
+    prog = get_program(prog)
+    check_pagerank_num_vertices(prog, num_vertices)
+    crash_at = None
+    if fault_plan is not None and fault_plan.crash_at_superstep is not None:
+        crash_at = int(fault_plan.crash_at_superstep)
+        num_supersteps = min(num_supersteps, crash_at)  # the doomed superstep never completes
+    exec_prog, negate = _exec_view(prog)
+    group, rank, w = axes_group(mesh, axes)
+    p = int(statics["num_parts"])
+    if p % w:
+        raise ValueError(f"num_parts={p} must divide evenly over the {w} ranks of mesh axes "
+                         f"{axes!r}")
+    nloc = p // w
+    rows = slice(rank * nloc, (rank + 1) * nloc)
+    dev = mesh_device(mesh)
+    exchange = _a2a_exchange(group, w)
+    addressing = statics.get("addressing", "two_level")
+    n = int(statics["max_v"]) + 1
+    shard_cache: list = []  # [(the arrays it was cut from, the shard)]
+
+    def shard(arrays: dict) -> SubgraphSet:
+        held = tuple(arrays[k] for k in _ARRAY_FIELDS)
+        if not (shard_cache and all(a is b for a, b in zip(shard_cache[0][0], held))):
+            cut = {k: torch.as_tensor(a)[rows].to(dev).contiguous()
+                   for k, a in zip(_ARRAY_FIELDS, held)}
+            shard_cache[:] = [(held, SubgraphSet(**cut, **statics))]
+        return shard_cache[0][1]
+
+    def runner(arrays: dict, val):
+        val = torch.as_tensor(val)
+        if addressing == "flat":
+            check_int32_kernel_gid(prog, torch.as_tensor(arrays["gid"]))
+        elif prog.dtype == "int32":
+            mag = val.abs()
+            bound = int(torch.where(mag != INF_I32, mag, 0).max()) if val.numel() else 0
+            if prog.weight == "unit":
+                bound += int(torch.as_tensor(arrays["is_master"]).sum())
+            check_int32_kernel_values(prog, bound)
+        sub = shard(arrays)
+        v = val[rows].to(dev)
+        v = -v if negate else v
+        if prog.dtype == "int32":
+            v = _to_f32(v)
+        out, steps, msgs, iters, bad = _dist_steps(
+            exec_prog, sub, v[None].contiguous(), group, exchange, num_supersteps=num_supersteps,
+            inner_cap=inner_cap, tol=tol, num_vertices=num_vertices, block_e=block_e,
+        )
+        if prog.dtype == "int32":
+            out = _to_i32(out)
+        # One all_gather assembles every rank's rows, stats and id flag.
+        words = out.view(torch.int32) if out.dtype == torch.float32 else out
+        pack = torch.cat([words.reshape(-1), msgs.reshape(-1), iters.reshape(-1), bad])
+        gathered = [torch.empty_like(pack) for _ in range(w)]
+        dist.all_gather(gathered, pack, group=group)
+        HOST_SYNCS["dist"] += 1
+        allp = torch.stack(gathered).cpu()
+        nv, ns = nloc * n, num_supersteps * nloc
+        vals = allp[:, :nv].contiguous().view(out.dtype).reshape(p, n)
+
+        def per_step(a):  # [w, S·nloc] → [S, p]
+            return a.reshape(w, num_supersteps, nloc).permute(1, 0, 2).reshape(num_supersteps, p)
+
+        msgs_sp, iters_sp = per_step(allp[:, nv:nv + ns]), per_step(allp[:, nv + ns:nv + 2 * ns])
+        bits = 0
+        for b in allp[:, -1].tolist():
+            bits |= b
+        plan = _plan_for(exec_prog, sub, block_e)
+        check_flag(bits, plan.lsrc, plan.ldst, plan.num_out)
+        if crash_at is not None and steps >= crash_at:
+            # The loop was still running when the doomed superstep came due.
+            from repro_torch.resilience.faults import WorkerCrashError
+
+            raise WorkerCrashError(superstep=crash_at)
+        return (-vals if negate else vals), msgs_sp.sum(dim=0), steps, msgs_sp, iters_sp
+
+    return runner
+
+
+def _dist_steps(exec_prog, sub, val, group, exchange, *, num_supersteps, inner_cap, tol,
+                num_vertices, block_e):
+    """The distributed stepper's loop on this rank's rows: exec values
+    `val` [1, nloc, n] → (values [nloc, n], steps, msgs [S, nloc], iters
+    [S, nloc], the kernels' id flag [1]) on the device."""
+    plan = _plan_for(exec_prog, sub, block_e)
+    plan.err.zero_()
+    nloc, dev = val.shape[1], val.device
+    msgs_buf = torch.zeros((num_supersteps, nloc), dtype=torch.int32, device=dev)
+    iters_buf = torch.zeros((num_supersteps, nloc), dtype=torch.int32, device=dev)
+    steps = 0
+    while steps < num_supersteps:
+        v2, msgs, iters, delta = _superstep(exec_prog, sub, plan, val, inner_cap,
+                                            num_vertices=num_vertices, exchange=exchange)
+        DISPATCH_COUNTS["dist"] += 1
+        msgs_buf[steps] = msgs[0]
+        iters_buf[steps] = iters[0]
+        steps += 1
+        # Convergence is global: every rank adds its signal, so all take
+        # the same trip count (and make the same collectives).
+        if exec_prog.convergence == "tol":
+            signal = delta.clone()
+        else:
+            signal = torch.any(v2 != val).to(torch.int32).reshape(1)
+        dist.all_reduce(signal, op=dist.ReduceOp.SUM, group=group)
+        val = v2
+        if exec_prog.convergence == "tol" and not tol:
+            continue  # tol=0 runs every superstep: no flag to read
+        HOST_SYNCS["dist"] += 1
+        if bool(signal[0] < tol) if exec_prog.convergence == "tol" else not bool(signal[0]):
+            break
+    return val[0], steps, msgs_buf, iters_buf, plan.err

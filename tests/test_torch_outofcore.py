@@ -15,6 +15,7 @@ order, the counters, every `SubgraphSet` field, CC's labels and stats.
 """
 import dataclasses
 import json
+import types
 
 import numpy as np
 import pytest
@@ -239,8 +240,16 @@ def test_partition_store_reuses_external_passes(store, tmp_path):
     assert a.result.order.dtype == torch.int64
 
 
-def test_sharded_state_layout_raises(store):
-    with pytest.raises(ValueError, match="distributed"):
+def test_sharded_state_layout_raises(store, monkeypatch):
+    # state_layout="sharded" is ported (tests/test_torch_distributed.py
+    # holds it against "replicated" at worlds 1 and 2). num_parts must
+    # divide over the mesh, checked before any collective (a 3-wide
+    # stand-in mesh), and the default mesh is the card's, with no fallback.
+    three = types.SimpleNamespace(shape=(3,), mesh_dim_names=("workers",), device_type="cpu")
+    with pytest.raises(ValueError, match=f"num_parts={P} must divide evenly over 3"):
+        oc.partition_store(store, P, "ebv", state_layout="sharded", mesh=three, device=CPU)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         oc.partition_store(store, P, "ebv", state_layout="sharded", device=CPU)
     with pytest.raises(ValueError, match="state_layout"):
         oc.partition_store(store, P, "ebv", state_layout="striped", device=CPU)

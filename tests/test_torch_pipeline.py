@@ -4,6 +4,8 @@ program's values and `BSPStats`, and the run's views — plus the device
 rule, and the CUDA kernels against their plain versions where a card is
 present (marked `cuda`; they skip without one).
 """
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -77,8 +79,16 @@ def test_build_params_and_kwargs_flow_like_the_reference(pipes):
 
 def test_pipeline_rejects_what_is_not_ported(pipes, tiny_powerlaw):
     _, port = pipes
-    with pytest.raises(ValueError, match="not ported"):
-        port.run("cc", mode="dist")
+    # mode="dist" is ported (tests/test_torch_distributed.py runs it); its
+    # argument errors come before any collective, so a stand-in mesh of 2
+    # ranks serves: a 4-part partition does not fit it, driver= is sim-only.
+    two = types.SimpleNamespace(shape=(2,), mesh_dim_names=("workers",), device_type="cpu")
+    with pytest.raises(ValueError, match="parts"):
+        port.run("cc", mode="dist", mesh=two)
+    with pytest.raises(ValueError, match="driver="):
+        port.run("cc", mode="dist", mesh=two, driver="fused")
+    with pytest.raises(ValueError, match="unknown mode"):
+        port.run("cc", mode="shard_map")
     with pytest.raises(RuntimeError, match="no partition stage"):
         GraphPipeline(_port(tiny_powerlaw), device="cpu").run("cc")
     with pytest.raises(ValueError, match="does not use"):

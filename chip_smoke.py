@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (`src/repro_torch`) on one NVIDIA card.
 
-    python3 chip_smoke.py [--full-log2-edges 26]
+    python3 chip_smoke.py [--full-log2-edges 26] [--lm-only]
 
 Phases; a failed check raises and the script exits non-zero:
 
@@ -125,8 +125,31 @@ Phases; a failed check raises and the script exits non-zero:
               DBH and CVC partition the full-width graph on the card,
               bitwise against a numpy splitmix64 written here, with their
               edges per second and metrics.
+  6. lm       the LM serving path at full width: llama3_2_3b at its
+              published widths (28 layers, d_model 3,072, 24 query heads
+              over 8 KV heads), ~3.2 B bf16 parameters drawn on the card
+              from a seeded generator, 8 prompts of 1,024 tokens from
+              np.random.default_rng(0), 64 greedy tokens through
+              repro_torch.launch.serve.generate (KV caches of 1,088 keys).
+              The launch counts are zeroed just before the generate call
+              and read just after: decode_attention must launch exactly 28
+              x 64 times. The same call with the decode attention on its
+              plain version (the test hook layers.plain_decode_attention)
+              must give logits within LM_LOGIT_ATOL (bf16) and the same
+              tokens at every step whose top-2 margin is above it, until a
+              row's first near tie; the plain decode fed the kernel run's
+              tokens, and one full forward of prompts and tokens, must
+              give every step's logits within LM_LOGIT_ATOL (a control,
+              another row's logits, must fail it). `python -m
+              repro_torch.launch.serve --preset tiny` runs on the card in a
+              process of its own (f32 parameters over bf16 caches). Then
+              decode_attention on layer 0's live cache (keys [0, 1,088)),
+              with a bf16 and an f32 query, against its plain version and
+              timed beside its bound and SDPA. One {"lm_serve": ...}
+              stdout line. `--lm-only` runs the build and this phase alone.
 
-Prints the card's name and power limit, the {"serve": ...} and {"kernels": [...]} lines, and last
+Prints the card's name and power limit, the {"serve": ...}, {"lm_serve": ...} and
+{"kernels": [...]} lines, and last
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 It needs the repository around it and a CUDA card; without either it fails.
 """
@@ -225,6 +248,17 @@ OUT_OF_CORE = dict(shard_edges=1 << 20, block=4096)
 # The sharded out-of-core layout's block on twitter_like (one launch and
 # one all_gather a block).
 DIST_SHARDED_BLOCK = 256
+# The LM serving phase: llama3_2_3b at its published widths (src/repro_torch/
+# configs/llama3_2_3b.py), bf16 parameters drawn on the card from seed 0,
+# B = 8 prompts of 1,024 tokens from np.random.default_rng(0) as the serving
+# driver draws them, 64 greedy tokens, caches of 1,088 keys.
+LM = dict(config="llama3_2_3b", batch=8, prompt_len=1024, new_tokens=64, seed=0)
+# bf16 logits: a |logit| below 8 is a bf16 number 2^-5 from its neighbours;
+# the kernel run, the plain run and the full forward may land up to four such
+# steps apart (another order of f32 sums, then bf16 roundings through 28
+# layers). Every comparison also holds a control, the same logits against
+# another row's, which must fail the limit.
+LM_LOGIT_ATOL = 0.125
 
 
 def log(msg: str) -> None:
@@ -2005,6 +2039,280 @@ def measure_attention(dev, launches, name, B, softcap, c=GEMMA2_27B, config="gem
     )
 
 
+# ------------------------------------------------------- the LM serving path
+
+
+def lm_compare(got_toks, got, want_toks, want, tol):
+    """Per row and step: max |logit error| until the row's first step whose
+    top-2 margin in `want` is within tol (or whose tokens differ, which must
+    then be such a step): (max error, the (row, step) pairs compared)."""
+    top = want.float().topk(2, dim=-1).values
+    margin = (top[..., 0] - top[..., 1]).cpu()
+    err = (got.float() - want.float()).abs().amax(dim=-1).cpu()
+    worst, compared = 0.0, 0
+    for b in range(want_toks.shape[0]):
+        for t in range(want_toks.shape[1]):
+            worst = max(worst, float(err[b, t]))
+            compared += 1
+            if int(got_toks[b, t]) != int(want_toks[b, t]):
+                check(float(margin[b, t]) <= tol,
+                      f"lm: row {b} step {t} took another token at a top-2 margin of "
+                      f"{float(margin[b, t])} > {tol}")
+                break
+            if float(margin[b, t]) <= tol:
+                break
+    return worst, compared
+
+
+def lm_generate(cfg, params, prompt, plain=False):
+    """One generate call through the serving entry point: (tokens [B, N],
+    logits [B, N + 1, vocab] of the prefill and each decode step, prefill
+    ms, per-token decode ms, host wall s), each step timed by a CUDA event
+    recorded as it is enqueued."""
+    import contextlib
+
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import layers
+
+    N = LM["new_tokens"]
+    events, logits = [], []
+
+    def on_step(t, lg):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+        logits.append(lg)
+
+    start = torch.cuda.Event(enable_timing=True)
+    sync()
+    t0 = time.perf_counter()
+    start.record()
+    with layers.plain_decode_attention() if plain else contextlib.nullcontext():
+        toks = generate(cfg, params, prompt, N, prompt.shape[1] + N, on_step=on_step)
+    sync()
+    wall = time.perf_counter() - t0
+    step_ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+    return toks, torch.stack(logits, dim=1), start.elapsed_time(events[0]), step_ms, wall
+
+
+def phase_lm(dev):
+    """The LM serving path at full width through `repro_torch.launch.serve`:
+    the kernel run (launch counts zeroed just before it and read just after),
+    the same call on the plain decode attention, every step's logits against
+    the full forward, the CLI's tiny preset (f32 over bf16 caches) in a
+    process of its own, and decode_attention's kernel entries on the live
+    cache."""
+    from repro_torch import configs
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import transformer
+    from repro_torch.serve.padding import bucket_size, pad_batch_rows
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = configs.get_config(LM["config"])
+    B, S0, N = LM["batch"], LM["prompt_len"], LM["new_tokens"]
+    t = time.perf_counter()
+    params = transformer.init_params(cfg, torch.Generator(device=dev).manual_seed(LM["seed"]),
+                                     torch.bfloat16)
+    sync()
+    init_s = time.perf_counter() - t
+    n_params = sum(p.numel() for p in params.parameters())
+    # The config's count leaves out the final norm's d_model scales.
+    check(n_params == cfg.num_params() + cfg.d_model,
+          f"lm: {n_params} parameters, the config counts {cfg.num_params()} + {cfg.d_model}")
+    bucket = bucket_size(B)
+    prompt = pad_batch_rows(np.random.default_rng(0).integers(0, cfg.vocab, (B, S0)), bucket)
+    prompt = torch.from_numpy(prompt).to(dev)
+    lm_generate(cfg, params, prompt[:, :64])  # warm-up: cuBLAS, the allocator
+
+    dispatch.reset_launches()
+    toks, logits, prefill_ms, step_ms, wall = lm_generate(cfg, params, prompt)
+    launches = dict(dispatch.LAUNCHES)
+    want = cfg.n_layers * N
+    check(launches.get("decode_attention", 0) == want,
+          f"lm: decode_attention launched {launches.get('decode_attention', 0)} times in the "
+          f"generate call, not n_layers x new tokens = {want}")
+    check(toks.shape == (bucket, N) and bool(((toks >= 0) & (toks < cfg.vocab)).all()),
+          "lm: tokens out of shape or range")
+    check(logits.shape == (bucket, N + 1, cfg.vocab) and bool(torch.isfinite(logits).all()),
+          "lm: logits not finite or out of shape")
+    log(f"lm: {cfg.name} generate: prefill {prefill_ms:.1f} ms, decode p50 "
+        f"{np.percentile(step_ms, 50):.2f} ms a token, {want} decode_attention launches")
+
+    # The same call, its decode attention on the plain version.
+    dispatch.reset_launches()
+    ptoks, plogits, _, plain_step_ms, _ = lm_generate(cfg, params, prompt, plain=True)
+    check(dispatch.LAUNCHES.get("decode_attention", 0) == 0,
+          "lm: the plain run launched the kernel")
+    plain_err, compared = lm_compare(toks, logits, ptoks, plogits, LM_LOGIT_ATOL)
+    check(plain_err <= LM_LOGIT_ATOL, f"lm: kernel run's logits differ from the plain run's "
+                                      f"by {plain_err} > {LM_LOGIT_ATOL}")
+    tokens_equal = int((toks == ptoks).all(dim=1).sum())
+    # Decode ≡ full forward: every step's logits against one forward of the
+    # prompt and the generated tokens (the reference's tests/test_models.py
+    # check, at full width).
+    full, _ = transformer.forward(cfg, params, tokens=torch.cat([prompt, toks.long()], dim=1))
+    full = full[:, S0 - 1:]  # position S0 - 1 + t is step t's
+    full_err_all = float((logits.float() - full.float()).abs().max())
+    last_err = float((logits[:, -1].float() - full[:, -1].float()).abs().max())
+    control = float((logits[:, -1].float() - full[:, -1].roll(1, dims=0).float()).abs().max())
+    del full
+    check(full_err_all <= LM_LOGIT_ATOL,
+          f"lm: decode logits differ from the full forward by {full_err_all} > {LM_LOGIT_ATOL}")
+    check(control > LM_LOGIT_ATOL, f"lm: the limit passes the control (another row's logits, "
+                                   f"{control})")
+    log(f"lm: kernel == plain run over {compared} (row, step) pairs (max |logit err| "
+        f"{plain_err:.4f}; {tokens_equal}/{bucket} rows' tokens equal), == full forward at "
+        f"every step (max {full_err_all:.4f}; last step {last_err:.4f}; control {control:.2f})")
+
+    # The plain decode attention fed the kernel run's tokens: every step's
+    # logits comparable, near-ties or not; its caches feed the kernel entries.
+    dispatch.reset_launches()
+    forced, caches = lm_teacher_forced(cfg, params, prompt, toks)
+    check(dispatch.LAUNCHES.get("decode_attention", 0) == 0,
+          "lm: the teacher-forced plain run launched the kernel")
+    forced_err = float((logits.float() - forced.float()).abs().max())
+    forced_tokens = int((forced[:, :N].float().argmax(dim=-1) == toks).sum())
+    check(forced_err <= LM_LOGIT_ATOL, f"lm: kernel run's logits differ from the plain "
+                                       f"decode's on the same tokens by {forced_err}")
+    log(f"lm: == plain decode on the kernel run's tokens at every step (max |logit err| "
+        f"{forced_err:.4f}; {forced_tokens}/{bucket * N} greedy tokens equal)")
+    entries = measure_lm_attention(cfg, caches[0], launches.get("decode_attention"), dev)
+    del params, logits, plogits, forced, caches
+    torch.cuda.empty_cache()
+
+    # The CLI on the card: the tiny preset, f32 parameters over bf16 caches.
+    t = time.perf_counter()
+    cli = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve", "--preset", "tiny"],
+                         capture_output=True, text=True, timeout=300, cwd=ROOT,
+                         env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    cli_s = time.perf_counter() - t
+    check(cli.returncode == 0 and "generated 128 tokens" in cli.stdout,
+          f"lm: python -m repro_torch.launch.serve --preset tiny failed:\n{cli.stdout}\n"
+          f"{cli.stderr}")
+    log(f"lm: the serve CLI (--preset tiny) on the card in {cli_s:.1f} s: "
+        f"{cli.stdout.splitlines()[0]}")
+    decode_s = sum(step_ms) / 1e3
+    out = dict(
+        config=cfg.name, params=n_params, dtype="bfloat16", batch=B, bucket=bucket,
+        prompt_len=S0, new_tokens=N, max_seq=S0 + N, init_s=init_s,
+        prefill_s=prefill_ms / 1e3, decode_ms_p50=float(np.percentile(step_ms, 50)),
+        decode_ms_p99=float(np.percentile(step_ms, 99)),
+        plain_decode_ms_p50=float(np.percentile(plain_step_ms, 50)),
+        tokens_per_s=B * N / decode_s, tokens_per_s_with_prefill=B * N / wall,
+        generate_wall_s=wall, launches=launches,
+        max_abs_logit_err_plain=plain_err, plain_pairs_compared=compared,
+        plain_rows_tokens_equal=tokens_equal,
+        max_abs_logit_err_teacher_forced=forced_err, teacher_forced_tokens_equal=forced_tokens,
+        max_abs_logit_err_full_forward=full_err_all,
+        max_abs_logit_err_full_forward_last=last_err, control_err=control,
+        logit_atol=LM_LOGIT_ATOL, peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+        cli_s=cli_s, cli=cli.stdout.strip(),
+    )
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"lm: phase {out['phase_s']:.1f} s")
+    return out, entries
+
+
+def lm_teacher_forced(cfg, params, prompt, toks):
+    """The serving steps on the plain decode attention, fed `toks` [B, N]:
+    (logits [B, N + 1, vocab] of the prefill and each step, the caches)."""
+    from repro_torch.models import layers, steps
+
+    S0, N = prompt.shape[1], toks.shape[1]
+    with torch.no_grad(), layers.plain_decode_attention():
+        logits, caches = steps.make_prefill_step(cfg, S0 + N)(params, dict(tokens=prompt))
+        out = [logits]
+        serve = steps.make_serve_step(cfg)
+        for t in range(N):
+            logits, caches = serve(params, caches, dict(token=toks[:, t:t + 1].long(),
+                                                        pos=S0 + t))
+            out.append(logits)
+    return torch.stack(out, dim=1), caches
+
+
+def measure_lm_attention(cfg, cache, lm_launches, dev):
+    """decode_attention at the LM path's shapes: a bf16 query (and an f32
+    one, the f32-over-bf16 build) over all 1,088 keys of layer 0's live
+    cache, written by the serving steps; timed beside its bound, the plain
+    version and SDPA on the same keys. Each is also held at key ranges the
+    decode steps read, [0, 1,025) and [0, 1,057), and one from a start past
+    0, on a copy of the cache whose rows outside the range are NaN."""
+    from repro_torch.kernels import decode_attn, ops
+
+    B = LM["batch"]
+    k, v, end = cache.k, cache.v, cache.pos
+    check(end == LM["prompt_len"] + LM["new_tokens"] == k.shape[1],
+          "lm: the cache is not full after the decode steps")
+    Hq, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    gen = torch.Generator(device=dev).manual_seed(21)
+    entries = []
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    ranges = ((0, LM["prompt_len"] + 1), (0, LM["prompt_len"] + 33), (37, end - 27))
+
+    def held(name, q, kc, vc, lo, hi):
+        """The kernel over keys [lo, hi) of kc, vc against the plain version
+        over the live cache's rows [lo, hi), at ATTN_TOL with its control."""
+        got = ops.decode_attention(q, kc, vc, start=lo, end=hi)
+        want = decode_attn.decode_attention_plain(q, k[:, lo:hi], v[:, lo:hi]).float()
+        rtol, atol = ATTN_TOL[q.dtype]
+        check(got.dtype == q.dtype and bool(torch.isfinite(got.float()).all()),
+              f"{name} keys [{lo}, {hi}): output type or values")
+        reading = dict(max_abs_err=float((got.float() - want).abs().max()),
+                       over_limit=over_limit(got.float(), want, rtol, atol),
+                       control_over_limit=over_limit(ATTN_CONTROL * got.float(), want, rtol,
+                                                     atol))
+        check(reading["over_limit"] <= 1.0,
+              f"{name} keys [{lo}, {hi}) differs from the plain version: {reading}")
+        check(reading["control_over_limit"] > 1.0,
+              f"{name} keys [{lo}, {hi}): the limit passes the control")
+        return got, reading
+
+    for name, qt in (("decode_attention.llama3_2_3b", torch.bfloat16),
+                     ("decode_attention.llama3_2_3b.f32q", torch.float32)):
+        q = torch.randn((B, Hq, D), generator=gen, device=dev).to(qt)
+        got, reading = held(name, q, k, v, 0, end)
+        rtol, atol = ATTN_TOL[qt]
+        at_ranges = {}
+        for lo, hi in ranges:
+            kn, vn = k.clone(), v.clone()
+            for t in (kn, vn):
+                t[:, :lo] = float("nan")
+                t[:, hi:] = float("nan")
+            at_ranges[f"[{lo}, {hi})"] = held(name, q, kn, vn, lo, hi)[1]
+            del kn, vn
+        ms = cuda_ms(lambda: ops.decode_attention(q, k, v, start=0, end=end), reps=50)
+        plain_ms = cuda_ms(lambda: decode_attn.decode_attention_plain(q, k[:, :end],
+                                                                      v[:, :end]), reps=5)
+        q4, k4, v4 = q.to(k.dtype)[:, :, None], k[:, :end].transpose(1, 2), \
+            v[:, :end].transpose(1, 2)
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        library_ms = cuda_ms(lambda: sdpa(q4, k4, v4, enable_gqa=True), reps=50)
+        io_bytes = nbytes(q, got) + 2 * B * end * Hkv * D * k.element_size()
+        n_ops = 4.0 * B * Hq * end * D
+        peak = BF16_FLOPS if qt == torch.bfloat16 else F32_FLOPS
+        bound = max(io_bytes / HBM_BYTES_PER_S, n_ops / peak)
+        nsplit = decode_attn.split_count(B, end, Hkv, Hq // Hkv, sms,
+                                         decode_attn.tile_keys(D, k.dtype))
+        entries.append(dict(
+            name=name, route="cuda", source="src/repro_torch/kernels/csrc/decode_attn.cu",
+            replaces="src/repro/kernels/decode_attn.py:61", launches=lm_launches,
+            max_abs_err=reading["max_abs_err"], ms=ms, plain_ms=plain_ms, bound_ms=1e3 * bound,
+            bound_by="bytes" if io_bytes / HBM_BYTES_PER_S >= n_ops / peak else "operations",
+            library_ms=library_ms,
+            library="F.scaled_dot_product_attention(enable_gqa=True), bf16 q",
+            limit=f"rtol {rtol}, atol {atol}", over_limit=reading["over_limit"],
+            control_over_limit=reading["control_over_limit"],
+            key_ranges_nan_outside=at_ranges,
+            shape=f"llama3_2_3b decode step: B={B}, Hq={Hq}, Hkv={Hkv}, D={D}, keys [0, {end}) "
+                  f"of layer 0's live [{B}, {k.shape[1]}, {Hkv}, {D}] bf16 cache, q "
+                  f"{str(qt).replace('torch.', '')}, {nsplit} splits",
+        ))
+        del q, got, q4, k4, v4
+    return entries
+
+
 # -------------------------------------------------------------------- main
 
 
@@ -2014,6 +2322,9 @@ def main(argv=None) -> int:
                     help="log2 of the full-width edge count (V stays 2^22)")
     ap.add_argument("--dist-child", type=Path, default=None,
                     help=argparse.SUPPRESS)  # one rank of the distributed phase's world of 2
+    ap.add_argument("--lm-only", action="store_true",
+                    help="run the build and the LM serving phase alone (a quick check of "
+                         "that path; the full run is the script without flags)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on the card",
@@ -2035,32 +2346,49 @@ def main(argv=None) -> int:
     log(f"card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     build_s = phase_build()
-    smoke_errs = phase_kernels(dev)
-    pinned_s, pinned_drivers = phase_pinned(dev)
-    t = time.perf_counter()
-    baselines = phase_baselines(dev)
-    baselines_s = time.perf_counter() - t
-    summary, kernels = phase_full(dev, args.full_log2_edges)
+    record = dict(card=smi, build_s=build_s)
+    kernels = []
+    if not args.lm_only:
+        record["smoke_kernel_errors"] = phase_kernels(dev)
+        record["pinned_s"], record["pinned_drivers"] = phase_pinned(dev)
+        t = time.perf_counter()
+        record["baselines"] = phase_baselines(dev)
+        record["baselines_s"] = time.perf_counter() - t
+        record["full"], kernels = phase_full(dev, args.full_log2_edges)
+    lm, lm_kernels = phase_lm(dev)
+    for e in kernels:  # the LM path's launches beside the main path's
+        e["lm_launches"] = lm["launches"].get(e["name"],
+                                              lm["launches"].get(e["name"].split(".")[0], 0))
+    kernels += lm_kernels
     total = time.perf_counter() - t0
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(dict(
-        card=smi, build_s=build_s, smoke_kernel_errors=smoke_errs, pinned_s=pinned_s,
-        pinned_drivers=pinned_drivers,
-        baselines=baselines, baselines_s=baselines_s, full=summary, kernels=kernels,
-        total_s=total,
-    ), indent=1))
+        record, lm=lm, kernels=kernels, total_s=total), indent=1))
     log(f"all phases passed in {total:.1f} s")
 
     print(smi)
-    serve = summary["serve"]
-    print(json.dumps({"serve": {k: serve[k] for k in (
-        "queries", "wall_s", "throughput_qps", "latency_p50_s", "latency_p99_s", "batches",
-        "mean_batch", "padding_waste", "supersteps_mean", "cache", "resilience", "capture_s")}}))
+    if "full" in record:
+        serve = record["full"]["serve"]
+        print(json.dumps({"serve": {k: serve[k] for k in (
+            "queries", "wall_s", "throughput_qps", "latency_p50_s", "latency_p99_s", "batches",
+            "mean_batch", "padding_waste", "supersteps_mean", "cache", "resilience",
+            "capture_s")}}))
+    print(json.dumps({"lm_serve": lm_line(lm, smi)}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                               "kind": torch.cuda.get_device_name(0),
                                               "count": torch.cuda.device_count()}}))
     return 0
+
+
+def lm_line(lm, smi):
+    """The {"lm_serve": ...} stdout line."""
+    keys = ("config", "batch", "prompt_len", "new_tokens", "prefill_s", "decode_ms_p50",
+            "decode_ms_p99", "tokens_per_s", "tokens_per_s_with_prefill",
+            "max_abs_logit_err_plain", "max_abs_logit_err_full_forward", "logit_atol",
+            "phase_s")
+    return dict({k: lm[k] for k in keys}, launches=lm["launches"].get("decode_attention", 0),
+                card=smi)
 
 
 if __name__ == "__main__":

@@ -3,5 +3,7 @@
 Module paths mirror `repro`: `core/` (partitioners, metrics), `graph/`
 (generators, subgraph build, BSP engine), `api/` (configs, registry,
 `GraphPipeline`), `kernels/` (CUDA kernels and their plain versions),
-and `interop` (carrying the reference's numpy data across).
+`models/` and `configs/` (the LM stack's dense decoders), `launch/`
+(command-line drivers) and `interop` (carrying the reference's numpy data
+across).
 """

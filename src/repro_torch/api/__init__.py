@@ -9,8 +9,10 @@ from repro_torch.api.config import (
     HDRFConfig,
     MetisLikeConfig,
     NEConfig,
+    PartitionerConfig,
 )
 from repro_torch.api.registry import (
+    Partitioner,
     PartitionerSpec,
     RegistryFunctionView,
     benchmark_partitioners,

@@ -21,7 +21,7 @@ from __future__ import annotations
 import dataclasses
 import inspect
 from collections.abc import Mapping
-from typing import Callable, Optional
+from typing import Callable, Optional, Protocol, runtime_checkable
 
 from repro_torch.api.config import PartitionerConfig
 
@@ -29,6 +29,14 @@ from repro_torch.api.config import PartitionerConfig
 def check_num_parts(num_parts) -> None:
     if not isinstance(num_parts, int) or isinstance(num_parts, bool) or num_parts < 1:
         raise ValueError(f"num_parts must be a positive int, got {num_parts!r}")
+
+
+@runtime_checkable
+class Partitioner(Protocol):
+    """Anything that maps (graph, num_parts, **knobs) -> PartitionResult."""
+
+    def __call__(self, graph, num_parts: int, **kwargs):  # pragma: no cover
+        ...
 
 
 @dataclasses.dataclass(frozen=True)

@@ -18,6 +18,7 @@ from repro_torch.core.streaming import (
     get_scorer,
     greedy_partition,
     hdrf_partition,
+    list_scorers,
     register_scorer,
     scorer_names,
     streaming_chunked_partition,

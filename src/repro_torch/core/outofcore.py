@@ -44,6 +44,7 @@ int32, is the only O(E) array kept).
 from __future__ import annotations
 
 import dataclasses
+from pathlib import Path
 from typing import Callable, Iterator, Optional, Union
 
 import numpy as np
@@ -157,6 +158,16 @@ class _ShardedRows:
         return e_count, v_count, parts
 
 
+def _order_dir(store: EdgeShardStore, workdir) -> Path:
+    """Where this process's external sort writes its bucket files: a
+    directory a rank when torch.distributed is up, since every rank calls
+    `partition_store` and sorts the stream itself."""
+    base = Path(workdir) if workdir is not None else store.path / "_order_work"
+    if dist.is_available() and dist.is_initialized():
+        return base / f"rank{dist.get_rank()}"
+    return base
+
+
 def partition_store(
     store: EdgeShardStore,
     num_parts: int,
@@ -186,7 +197,10 @@ def partition_store(
 
     `commit` is the chunked commit mode ("window" makes any block size
     bit-identical to the one-edge scan). Pass precomputed `degrees` / an
-    `ordered` stream to reuse external passes.
+    `ordered` stream to reuse external passes. The external sort writes its
+    bucket files into `order_workdir` (default `<store>/_order_work`); under
+    `torch.distributed` each rank writes into its own `rank<r>` directory
+    there, so the ranks of one job may share the workdir.
 
     `state_layout="sharded"` shards the bitset's rows over the ranks of
     `mesh` (default `launch.mesh.make_host_mesh()`; its device type must be
@@ -216,7 +230,7 @@ def partition_store(
 
     if sort_edges:
         if ordered is None:
-            ordered = degree_sum_stream(store, degrees, workdir=order_workdir)
+            ordered = degree_sum_stream(store, degrees, workdir=_order_dir(store, order_workdir))
         block_iter = ordered.iter_blocks
     else:
         block_iter = store.iter_blocks

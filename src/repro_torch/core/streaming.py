@@ -129,6 +129,10 @@ def scorer_names() -> tuple[str, ...]:
     return tuple(_SCORERS)
 
 
+def list_scorers() -> tuple[EdgeScorer, ...]:
+    return tuple(_SCORERS.values())
+
+
 EBV = register_scorer(EdgeScorer(
     name="ebv", ce=1.0, cv=1.0,
     description="Paper Algorithm 1: unit membership + static p/|E|, p/|V| balance",

@@ -523,7 +523,8 @@ def _superstep(prog: VertexProgram, sub: SubgraphSet, plan: _RunPlan, val: torch
     "min" or "sum") over a batch of B queries: val [B, rows, max_v+1] (a
     single run is B = 1; rows = p, or a rank's shard of the workers).
     Returns (new_val, per-worker msg count [B, rows], per-worker inner
-    iters [B, rows], per-query L1 delta over the rows [B] or None).
+    iters [B, rows], each row's L1 delta [B, rows] or None; `l1_total`
+    adds a query's rows).
 
     `exchange` maps [B, rows, p, m] tables rowed by the local workers to
     the same shape rowed by the local workers and columned by the other
@@ -575,10 +576,29 @@ def _superstep(prog: VertexProgram, sub: SubgraphSet, plan: _RunPlan, val: torch
     Rb = exchange(Bm)  # sender-rowed view at mirrors: [b, i, j, m]
     out = _scatter(new_val, plan.bcast_idx, Rb, "set")
 
-    delta = None
-    if prog.convergence == "tol":
-        delta = (out[..., : sub.max_v] - val[..., : sub.max_v]).abs().sum(dim=(1, 2))
+    delta = l1_rows(out, val, sub.max_v) if prog.convergence == "tol" else None
     return out, (msgs_fwd + msgs_bwd).to(torch.int32), iters, delta
+
+
+def l1_rows(new: torch.Tensor, old: torch.Tensor, max_v: int) -> torch.Tensor:
+    """Each subgraph's L1 step delta: [B, rows, n] values → [B, rows]."""
+    return (new[..., :max_v] - old[..., :max_v]).abs().sum(dim=2)
+
+
+def l1_total(rows: torch.Tensor) -> torch.Tensor:
+    """[B, p] per-subgraph deltas → [B], added in one fixed order whatever
+    the driver or the world: a pairwise tree over the subgraphs in index
+    order, the rows padded with zeros to a power of two (a delta is >= 0,
+    so a zero adds nothing). The simulation and the distributed stepper
+    (after an all_gather of the ranks' rows) both stop on this sum, so they
+    stop at the same superstep even at a `tol` equal to a delta."""
+    p = rows.shape[1]
+    width = 1 << max(p - 1, 0).bit_length()
+    if width > p:
+        rows = torch.cat([rows, rows.new_zeros((rows.shape[0], width - p))], dim=1)
+    while rows.shape[1] > 1:
+        rows = rows[:, 0::2] + rows[:, 1::2]
+    return rows[:, 0]
 
 
 # ----------------------------------------- the kernels' 2^24 value boundary
@@ -858,7 +878,7 @@ class _FusedLoop:
                 self.num_vertices, live,
             )
             if prog.convergence == "tol":
-                newly = (delta < self.tol) if self.tol else None
+                newly = (l1_total(delta) < self.tol) if self.tol else None
             elif do_ex:
                 # Converged only when an exchange round changed nothing.
                 newly = ~(v2 != self.val).flatten(1).any(dim=1)
@@ -1093,7 +1113,7 @@ def _host_steps(exec_prog, sub, plan, val, *, start, count, inner_cap, exchange_
         if exec_prog.convergence == "tol":
             if tol:
                 HOST_SYNCS["host"] += 1
-                converged = bool(delta[0] < tol)
+                converged = bool(l1_total(delta)[0] < tol)
         elif do_ex:
             # Converged only when an exchange round produced no change; the
             # id flag comes in the same transfer.
@@ -1357,9 +1377,11 @@ def make_distributed_stepper(
 
     Each superstep is the simulation's `_superstep` on the local rows with
     the exchange an all_to_all_single over the mesh group (only the f32
-    values travel), then one all_reduce(SUM) of the convergence signal: an
-    int32 changed flag (no-change programs) or the f32 L1 delta against
-    `tol` (tol programs), so every rank takes the same trip count. The host
+    values travel), then one collective of the convergence signal: an
+    all_reduce(SUM) of the int32 changed flags (no-change programs), or an
+    all_gather of every subgraph's f32 L1 delta (p floats), added in the
+    simulation's order (`l1_total`) against `tol` (tol programs), so every
+    rank takes the same trip count as the simulation would. The host
     reads that flag once a superstep (none for a tol program with tol=0),
     and one all_gather at the end assembles the values, the stats and the
     kernels' id flags. The kernels run as everywhere: CUDA on the card, the
@@ -1469,13 +1491,17 @@ def _dist_steps(exec_prog, sub, val, group, exchange, *, num_supersteps, inner_c
         msgs_buf[steps] = msgs[0]
         iters_buf[steps] = iters[0]
         steps += 1
-        # Convergence is global: every rank adds its signal, so all take
-        # the same trip count (and make the same collectives).
+        # Convergence is global, so every rank takes the same trip count
+        # (and makes the same collectives): a tol program gathers every
+        # subgraph's delta and adds them as the simulation does; a no-change
+        # program adds the ranks' changed flags.
         if exec_prog.convergence == "tol":
-            signal = delta.clone()
+            rows_w = [torch.empty_like(delta[0]) for _ in range(dist.get_world_size(group))]
+            dist.all_gather(rows_w, delta[0].contiguous(), group=group)
+            signal = l1_total(torch.cat(rows_w)[None])
         else:
             signal = torch.any(v2 != val).to(torch.int32).reshape(1)
-        dist.all_reduce(signal, op=dist.ReduceOp.SUM, group=group)
+            dist.all_reduce(signal, op=dist.ReduceOp.SUM, group=group)
         val = v2
         if exec_prog.convergence == "tol" and not tol:
             continue  # tol=0 runs every superstep: no flag to read

@@ -107,3 +107,47 @@ def keep_bits_to_numpy(bits: torch.Tensor) -> np.ndarray:
         raise ValueError(f"keep bits must be a [p, Vw] int32 tensor, got {bits.dtype} "
                          f"{tuple(bits.shape)}")
     return bits.detach().cpu().numpy().view(np.uint32).copy()
+
+
+def _leaf_tensor(a, device) -> torch.Tensor:
+    """One parameter leaf (numpy, as JAX hands it back: f32, or bf16 as
+    ml_dtypes' bfloat16) → a tensor of the same dtype, bit for bit."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        bits = np.ascontiguousarray(a).view(np.uint16).view(np.int16)
+        return torch.from_numpy(bits.copy()).view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a, order="C", copy=True)).to(device)
+
+
+def lm_params_from_numpy(cfg, params: dict, *, device=None):
+    """The reference's LM parameters (the pytree of `repro.models.
+    transformer.init_params` as numpy arrays; `groups` stacked along the
+    n_groups axis) → the port's `DecoderLM` on `device`, in the leaves'
+    dtype. Layer l is group l // len(cfg.group), slot l % len(cfg.group)."""
+    from repro_torch.models.transformer import empty_params
+
+    dev = resolve_device(device)
+    embed = _leaf_tensor(params["embed"], dev)
+    out = empty_params(cfg, device="meta", dtype=embed.dtype)
+
+    def put(module, name, leaf):
+        t = _leaf_tensor(leaf, dev)
+        want = tuple(getattr(module, name).shape)
+        if tuple(t.shape) != want:
+            raise ValueError(f"parameter {name} has shape {tuple(t.shape)}, expected {want}")
+        setattr(module, name, torch.nn.Parameter(t, requires_grad=False))
+
+    put(out, "embed", params["embed"])
+    put(out, "final_norm", params["final_norm"])
+    if not cfg.tie_embeddings:
+        put(out, "unembed", params["unembed"])
+    n = len(cfg.group)
+    for layer, mod in enumerate(out.layers):
+        grp = params["groups"][f"layer_{layer % n}"]
+        g = layer // n
+        for name in ("pre_norm", "mlp_norm"):
+            put(mod, name, np.asarray(grp[name])[g])
+        for part, sub in (("attn", mod.attn), ("mlp", mod.mlp)):
+            for name, _ in list(sub.named_parameters()):
+                put(sub, name, np.asarray(grp[part][name])[g])
+    return out

@@ -2,10 +2,12 @@
 //
 // Replaces the TPU kernel `_decode_attn_kernel` / `decode_attention_pallas`
 // in src/repro/kernels/decode_attn.py (oracle `decode_attention_ref` in
-// src/repro/kernels/ref.py). Inputs: q [B, Hq, D], k and v [B, S, Hkv, D],
-// all f32 or all bf16, Hq = Hkv * G, 1 <= D <= 256; output out [B, Hq, D]
-// in q's type.
-// Query head h*G + g attends over kv head h:
+// src/repro/kernels/ref.py). Inputs: q [B, Hq, D], and a key range
+// [start, end) of k and v [B, S_max, Hkv, D] read in place (a KV cache
+// whose rows past `end` are not written yet), with q, k, v all f32, all
+// bf16, or q f32 over a bf16 k and v (an f32 model over a bf16 cache);
+// Hq = Hkv * G, 1 <= D <= 256; output out [B, Hq, D] in q's type.
+// Query head h*G + g attends over kv head h, keys j in [start, end):
 //   s_j = q . k_j * scale   (scale = 1/sqrt(D)),
 //   s_j = softcap * tanh(s_j / softcap)   when softcap != 0,
 //   out = sum_j softmax(s)_j v_j,   accumulated in f32.
@@ -39,6 +41,14 @@
 //     P·V phase: a thread owns one 16-byte column chunk of D and every
 //     KP-th key of the tile, and adds p_j v_j into GC·(16/sizeof(T)) f32
 //     registers; the KP partial accumulators are added once, at the end.
+//   * The decode step's cache read in place: k and v are the whole
+//     preallocated cache [B, S_max, Hkv, D]; the wrapper passes the range
+//     [start, end) of keys written so far (or, under a sliding window, the
+//     window's), and a CTA streams only those rows, at a batch stride of
+//     S_max·Hkv·D. A copy of the prefix would move as many bytes again.
+//   * q in f32 over a bf16 cache: the tiles and the ring are the cache's
+//     type, q is turned to f32 once as it is loaded, and the output takes
+//     q's type, as the TPU kernel casts each input to f32 on its own.
 //   * Products are written as __fmaf_rn (the build's -fmad=false forbids
 //     only the compiler's own contraction).
 //   * Any head_dim: the kernel is built for DP in {32, 64, 128, 256}; a
@@ -186,12 +196,15 @@ __device__ __forceinline__ float warp_max(float x) {
 // then (m, l) at ml[((x·nsplit + z)·GC + g)·2 + {0, 1}], ml = ws + rows·nsplit·GC·D.
 // D is the built (padded) width, dt <= D the true head_dim; bulk: rows
 // load by one bulk copy each, else by element.
-template <typename T, int D, int GC>
+// QT is q's and out's type, T the cache's; k and v point at key `start` of
+// batch row 0, and a batch row is `bstride` elements (S_max·Hkv·dt); S is
+// the range's length.
+template <typename QT, typename T, int D, int GC>
 __global__ void __launch_bounds__(Shape<T, D>::THREADS)
-    decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v, T* __restrict__ out, float* __restrict__ ws,
-                        int S, int Hkv, int G, int chunk, float scale, float softcap, int dt,
-                        int bulk) {
+    decode_split_kernel(const QT* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v, QT* __restrict__ out, float* __restrict__ ws,
+                        int S, long long bstride, int Hkv, int G, int chunk, float scale,
+                        float softcap, int dt, int bulk) {
   using Sh = Shape<T, D>;
   using Sm = Smem<T, D, GC>;
   constexpr int CE = Sh::CE, NCH = Sh::NCH, ROWB = Sh::ROWB, TILEB = Sh::TILEB;
@@ -221,8 +234,8 @@ __global__ void __launch_bounds__(Shape<T, D>::THREADS)
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
 
   const size_t rs = (size_t)Hkv * dt;  // elements from key s to key s+1
-  const T* kb = k + ((size_t)b * S * Hkv + h) * dt;
-  const T* vb = v + ((size_t)b * S * Hkv + h) * dt;
+  const T* kb = k + (size_t)b * bstride + (size_t)h * dt;
+  const T* vb = v + (size_t)b * bstride + (size_t)h * dt;
   if (t == 0) {
 #pragma unroll
     for (int i = 0; i < NSTAGE; ++i) mbar_init(bar + i, 1);
@@ -270,7 +283,7 @@ __global__ void __launch_bounds__(Shape<T, D>::THREADS)
 #pragma unroll
   for (int i = 0; i < NSTAGE - 1; ++i) load_tile(i);
   // The query rows, once the first tiles are on their way.
-  const T* qb = q + ((size_t)b * Hkv * G + (size_t)h * G + g0) * dt;
+  const QT* qb = q + ((size_t)b * Hkv * G + (size_t)h * G + g0) * dt;
   for (int i = t; i < GC * D; i += kThreads)
     q_s[i] = i / D < ng && i % D < dt ? to_f32(qb[i / D * dt + i % D]) : 0.0f;
 
@@ -412,7 +425,7 @@ __global__ void __launch_bounds__(Shape<T, D>::THREADS)
     for (int p2 = 1; p2 < KP; ++p2) num = __fadd_rn(num, red[(p2 * GC + g) * D + d]);
     if (nsplit == 1) {
       out[((size_t)b * Hkv * G + (size_t)h * G + g0 + g) * dt + d] =
-          from_f32<T>(__fdiv_rn(num, ml_s[GC + g]));
+          from_f32<QT>(__fdiv_rn(num, ml_s[GC + g]));
     } else {
       ws[(row0 + g) * D + d] = num;
     }
@@ -470,24 +483,25 @@ __global__ void __launch_bounds__(kMergeThreads)
 // sizes the workspace through decode_attn_workspace below).
 int group_rows(int G) { return G <= 1 ? 1 : G <= 2 ? 2 : G <= 4 ? 4 : 8; }
 
-template <typename T, int D, int GC>
+template <typename QT, typename T, int D, int GC>
 cudaError_t launch_split(const void* q, const void* k, const void* v, void* out, float* ws,
-                         int rows, int S, int Hkv, int G, int chunk, int nsplit, float scale,
-                         float softcap, int dt, int bulk, cudaStream_t stream) {
-  auto kern = decode_split_kernel<T, D, GC>;
+                         int rows, int S, long long bstride, int Hkv, int G, int chunk,
+                         int nsplit, float scale, float softcap, int dt, int bulk,
+                         cudaStream_t stream) {
+  auto kern = decode_split_kernel<QT, T, D, GC>;
   constexpr int bytes = Smem<T, D, GC>::BYTES;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
   kern<<<dim3(rows, nsplit), Shape<T, D>::THREADS, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), ws, S, Hkv, G, chunk, scale, softcap, dt, bulk);
+      static_cast<const QT*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<QT*>(out), ws, S, bstride, Hkv, G, chunk, scale, softcap, dt, bulk);
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <typename QT, typename T, int D>
 cudaError_t launch_d(const void* q, const void* k, const void* v, void* out, float* ws, int B,
-                     int S, int Hkv, int G, int nsplit, float scale, float softcap, int dt,
-                     cudaStream_t s) {
+                     int S, long long bstride, int Hkv, int G, int nsplit, float scale,
+                     float softcap, int dt, cudaStream_t s) {
   const int bulk = dt * (int)sizeof(T) % 16 == 0 && reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(v) % 16 == 0;
   const int GC = group_rows(G);
@@ -500,16 +514,16 @@ cudaError_t launch_d(const void* q, const void* k, const void* v, void* out, flo
   nsplit = (tiles + per - 1) / per;
   cudaError_t err;
   switch (GC) {
-    case 1: err = launch_split<T, D, 1>(q, k, v, out, ws, rows, S, Hkv, G, chunk, nsplit, scale, softcap, dt, bulk, s); break;
-    case 2: err = launch_split<T, D, 2>(q, k, v, out, ws, rows, S, Hkv, G, chunk, nsplit, scale, softcap, dt, bulk, s); break;
-    case 4: err = launch_split<T, D, 4>(q, k, v, out, ws, rows, S, Hkv, G, chunk, nsplit, scale, softcap, dt, bulk, s); break;
-    case 8: err = launch_split<T, D, 8>(q, k, v, out, ws, rows, S, Hkv, G, chunk, nsplit, scale, softcap, dt, bulk, s); break;
+    case 1: err = launch_split<QT, T, D, 1>(q, k, v, out, ws, rows, S, bstride, Hkv, G, chunk, nsplit, scale, softcap, dt, bulk, s); break;
+    case 2: err = launch_split<QT, T, D, 2>(q, k, v, out, ws, rows, S, bstride, Hkv, G, chunk, nsplit, scale, softcap, dt, bulk, s); break;
+    case 4: err = launch_split<QT, T, D, 4>(q, k, v, out, ws, rows, S, bstride, Hkv, G, chunk, nsplit, scale, softcap, dt, bulk, s); break;
+    case 8: err = launch_split<QT, T, D, 8>(q, k, v, out, ws, rows, S, bstride, Hkv, G, chunk, nsplit, scale, softcap, dt, bulk, s); break;
     default: return cudaErrorInvalidValue;
   }
   if (err != cudaSuccess || nsplit == 1) return err;
   const size_t merge_bytes = (size_t)(nsplit + 1) * GC * sizeof(float);
-  decode_merge_kernel<T><<<rows, kMergeThreads, merge_bytes, s>>>(ws, static_cast<T*>(out), Hkv,
-                                                                  G, GC, D, dt, nsplit);
+  decode_merge_kernel<QT><<<rows, kMergeThreads, merge_bytes, s>>>(ws, static_cast<QT*>(out),
+                                                                   Hkv, G, GC, D, dt, nsplit);
   return cudaGetLastError();
 }
 
@@ -518,17 +532,19 @@ int padded_dim(int D) {
   return D < 1 ? 0 : D <= 32 ? 32 : D <= 64 ? 64 : D <= 128 ? 128 : D <= 256 ? 256 : 0;
 }
 
-template <typename T>
+template <typename QT, typename T>
 cudaError_t launch_t(const void* q, const void* k, const void* v, void* out, float* ws, int B,
-                     int S, int Hkv, int G, int D, int nsplit, float scale, float softcap,
-                     cudaStream_t s) {
+                     int S, long long bstride, int Hkv, int G, int D, int nsplit, float scale,
+                     float softcap, cudaStream_t s) {
   switch (padded_dim(D)) {
-    case 32: return launch_d<T, 32>(q, k, v, out, ws, B, S, Hkv, G, nsplit, scale, softcap, D, s);
-    case 64: return launch_d<T, 64>(q, k, v, out, ws, B, S, Hkv, G, nsplit, scale, softcap, D, s);
+    case 32:
+      return launch_d<QT, T, 32>(q, k, v, out, ws, B, S, bstride, Hkv, G, nsplit, scale, softcap, D, s);
+    case 64:
+      return launch_d<QT, T, 64>(q, k, v, out, ws, B, S, bstride, Hkv, G, nsplit, scale, softcap, D, s);
     case 128:
-      return launch_d<T, 128>(q, k, v, out, ws, B, S, Hkv, G, nsplit, scale, softcap, D, s);
+      return launch_d<QT, T, 128>(q, k, v, out, ws, B, S, bstride, Hkv, G, nsplit, scale, softcap, D, s);
     case 256:
-      return launch_d<T, 256>(q, k, v, out, ws, B, S, Hkv, G, nsplit, scale, softcap, D, s);
+      return launch_d<QT, T, 256>(q, k, v, out, ws, B, S, bstride, Hkv, G, nsplit, scale, softcap, D, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -544,23 +560,37 @@ long long decode_attn_workspace(int B, int Hkv, int G, int D, int nsplit) {
   return (long long)B * Hkv * ((G + GC - 1) / GC) * nsplit * GC * (padded_dim(D) + 2);
 }
 
-// dtype: 0 = f32, 1 = bf16. 1 <= D <= 256; 1 <= nsplit <=
-// 1024 (fewer are used when S has fewer tiles); `ws` holds at least
-// decode_attn_workspace(...) floats. Returns cudaGetLastError of the launches.
+// k and v are [B, s_max, Hkv, D]; the keys [start, end) are read.
+// dtype: 0 = all f32, 1 = all bf16, 2 = q and out f32 over bf16 k and v.
+// 1 <= D <= 256; 1 <= nsplit <= 1024 (fewer are used when the range has
+// fewer tiles); `ws` holds at least decode_attn_workspace(...) floats.
+// Returns cudaGetLastError of the launches.
 int decode_attn_launch(const void* q, const void* k, const void* v, void* out, void* ws,
-                       long long ws_floats, int B, int S, int Hkv, int G, int D, int dtype,
-                       float scale, float softcap, int nsplit, void* stream) {
-  if (B < 1 || S < 1 || Hkv < 1 || G < 1 || nsplit < 1 || nsplit > 1024 || padded_dim(D) == 0)
+                       long long ws_floats, int B, int s_max, int start, int end, int Hkv, int G,
+                       int D, int dtype, float scale, float softcap, int nsplit, void* stream) {
+  if (B < 1 || start < 0 || end <= start || end > s_max || Hkv < 1 || G < 1 || nsplit < 1 ||
+      nsplit > 1024 || padded_dim(D) == 0)
     return (int)cudaErrorInvalidValue;
   if ((long long)B * Hkv * G > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   if (ws_floats < decode_attn_workspace(B, Hkv, G, D, nsplit)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* w = static_cast<float*>(ws);
+  const long long bstride = (long long)s_max * Hkv * D;  // elements a batch row
+  const size_t first = (size_t)start * Hkv * D;          // key `start` of batch row 0
+  const int S = end - start;
   if (dtype == 0)
-    return (int)launch_t<float>(q, k, v, out, w, B, S, Hkv, G, D, nsplit, scale, softcap, s);
+    return (int)launch_t<float, float>(q, static_cast<const float*>(k) + first,
+                                       static_cast<const float*>(v) + first, out, w, B, S,
+                                       bstride, Hkv, G, D, nsplit, scale, softcap, s);
+  using bf16 = __nv_bfloat16;
   if (dtype == 1)
-    return (int)launch_t<__nv_bfloat16>(q, k, v, out, w, B, S, Hkv, G, D, nsplit, scale,
-                                        softcap, s);
+    return (int)launch_t<bf16, bf16>(q, static_cast<const bf16*>(k) + first,
+                                     static_cast<const bf16*>(v) + first, out, w, B, S, bstride,
+                                     Hkv, G, D, nsplit, scale, softcap, s);
+  if (dtype == 2)
+    return (int)launch_t<float, bf16>(q, static_cast<const bf16*>(k) + first,
+                                      static_cast<const bf16*>(v) + first, out, w, B, S, bstride,
+                                      Hkv, G, D, nsplit, scale, softcap, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -3,9 +3,13 @@ CUDA kernel `csrc/decode_attn.cu` and its plain PyTorch version.
 
 Port of the TPU kernel `repro.kernels.decode_attn.decode_attention_pallas`
 (oracle `repro.kernels.ref.decode_attention_ref`). Inputs are q [B, Hq, D]
-and k, v [B, S, Hkv, D], all f32 or all bf16, with Hq a multiple of Hkv;
-query head h·G + g (G = Hq/Hkv) attends over kv head h. The scores are
-q·k/√D, capped as softcap·tanh(s/softcap) when softcap is non-zero; the
+and k, v [B, S, Hkv, D], with Hq a multiple of Hkv, all f32, all bf16, or
+q in f32 over a bf16 k and v (the TPU kernel casts each input to f32 on
+its own; an f32 model decodes over a bf16 cache so). Query head h·G + g
+(G = Hq/Hkv) attends over kv head h, at keys [start, end) of k and v
+(default: all S), which the kernel reads in place: the decode step hands
+it the whole preallocated cache and the range written so far. The scores
+are q·k/√D, capped as softcap·tanh(s/softcap) when softcap is non-zero; the
 softmax and the weighted sum of v are taken in f32, and the result
 [B, Hq, D] is cast to q's dtype.
 
@@ -31,7 +35,9 @@ from repro_torch.kernels.dispatch import (
     cuda_stream_handle,
 )
 
-DTYPES = (torch.float32, torch.bfloat16)
+# (q's dtype, k's and v's dtype) → the C entry's dtype code.
+DTYPE_CODES = {(torch.float32, torch.float32): 0, (torch.bfloat16, torch.bfloat16): 1,
+               (torch.float32, torch.bfloat16): 2}
 HEAD_DIMS = (32, 64, 128, 256)  # the CUDA kernel's builds: 16-byte chunks, four warps a row
 SPLIT_KEYS = 1024  # a split streams at most this many keys ...
 WAVE_CTAS = 2 * 3  # ... and the grid fills at least two waves of three CTAs an SM
@@ -88,37 +94,42 @@ def decode_attention_plain(q, k, v, *, softcap: float = 0.0):
     return out.reshape(B, Hq, D).to(q.dtype)
 
 
-def decode_attention(q, k, v, *, softcap: float = 0.0):
-    """[B, Hq, D] attention output; see the module docstring."""
+def decode_attention(q, k, v, *, softcap: float = 0.0, start: int = 0, end=None):
+    """[B, Hq, D] attention output over keys [start, end) of k and v (end
+    None: S); see the module docstring."""
     if q.ndim != 3 or k.ndim != 4:
         raise ValueError(f"q must be [B, Hq, D] and k [B, S, Hkv, D], got {tuple(q.shape)} "
                          f"and {tuple(k.shape)}")
     (B, Hq, D), (S, Hkv) = q.shape, k.shape[1:3]
-    if q.dtype not in DTYPES:
-        raise TypeError(f"decode_attention takes f32 or bf16, got {q.dtype}")
-    if S < 1 or Hkv < 1 or Hq % Hkv:
-        raise ValueError(f"need S >= 1 and Hq % Hkv == 0, got S={S}, Hq={Hq}, Hkv={Hkv}")
+    if (q.dtype, k.dtype) not in DTYPE_CODES:
+        raise TypeError(f"decode_attention takes f32 or bf16 (q, k and v of one dtype, or q "
+                        f"f32 over bf16 k and v); got q {q.dtype}, k {k.dtype}")
+    end = S if end is None else int(end)
+    start = int(start)
+    if not 0 <= start < end <= S or Hkv < 1 or Hq % Hkv:
+        raise ValueError(f"need 0 <= start < end <= S and Hq % Hkv == 0, got start={start}, "
+                         f"end={end}, S={S}, Hq={Hq}, Hkv={Hkv}")
     dev = q.device
     check_tensor("q", q, q.dtype, (B, Hq, D), dev)
-    check_tensor("k", k, q.dtype, (B, S, Hkv, D), dev)
-    check_tensor("v", v, q.dtype, (B, S, Hkv, D), dev)
+    check_tensor("k", k, k.dtype, (B, S, Hkv, D), dev)
+    check_tensor("v", v, k.dtype, (B, S, Hkv, D), dev)
     if dev.type == "cpu":
-        return decode_attention_plain(q, k, v, softcap=softcap)
+        return decode_attention_plain(q, k[:, start:end], v[:, start:end], softcap=softcap)
     if dev.type != "cuda":
         raise ValueError(f"decode_attention runs on CPU or CUDA tensors, got {dev}")
     padded_dim(D)  # raises above 256
     G = Hq // Hkv
-    nsplit = split_count(B, S, Hkv, G, _sm_count(dev), tile_keys(D, q.dtype))
+    nsplit = split_count(B, end - start, Hkv, G, _sm_count(dev), tile_keys(D, k.dtype))
     workspace = c_function("decode_attn", "decode_attn_workspace", [ctypes.c_int] * 5,
                            ctypes.c_longlong)(B, Hkv, G, D, nsplit)
     ws = torch.empty((max(workspace, 1),), dtype=torch.float32, device=dev)
     out = torch.empty_like(q)
     fn = c_function("decode_attn", "decode_attn_launch",
-                    [ctypes.c_void_p] * 5 + [ctypes.c_longlong] + [ctypes.c_int] * 6
+                    [ctypes.c_void_p] * 5 + [ctypes.c_longlong] + [ctypes.c_int] * 8
                     + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p])
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), ws.data_ptr(),
-             ws.numel(), B, S, Hkv, G, D, DTYPES.index(q.dtype), 1.0 / math.sqrt(D),
-             float(softcap), nsplit, cuda_stream_handle())
+             ws.numel(), B, S, start, end, Hkv, G, D, DTYPE_CODES[q.dtype, k.dtype],
+             1.0 / math.sqrt(D), float(softcap), nsplit, cuda_stream_handle())
     check_launch("decode_attn", err)
     LAUNCHES["decode_attention"] += 1
     return out

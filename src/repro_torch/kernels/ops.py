@@ -110,11 +110,13 @@ def ebg_membership(keep_bits, u, v, *, block_e: int = 512):
     return _memb.ebg_membership(keep_bits, u, v)
 
 
-def decode_attention(q, k, v, *, softcap: float = 0.0, block_s: int = 512):
-    """Single-token GQA decode attention over a KV cache. `block_s` is the
-    TPU grid's S block: the CUDA kernel streams S in its own chunks."""
+def decode_attention(q, k, v, *, softcap: float = 0.0, block_s: int = 512, start: int = 0,
+                     end=None):
+    """Single-token GQA decode attention over a KV cache, at its keys
+    [start, end) (default: all), read in place. `block_s` is the TPU grid's
+    S block: the CUDA kernel streams S in its own chunks."""
     del block_s
-    return _attn.decode_attention(q, k, v, softcap=softcap)
+    return _attn.decode_attention(q, k, v, softcap=softcap, start=start, end=end)
 
 
 def ebg_commit_block(

@@ -1,0 +1,262 @@
+"""Transformer layer primitives (port of `repro.models.layers`).
+
+Every attention variant of the dense decoders: GQA, sliding window
+(gemma2's local layers), attention and logit soft-capping, QK-norm
+(qwen3), QKV bias (qwen2), RoPE and M-RoPE (qwen2-vl), and the `kv_x`
+branch (attention over another sequence's keys). Sums and softmax in f32;
+the parameters' dtype (f32 or bf16) everywhere else, as in the reference.
+
+The parameters are `nn.Module`s in the reference's einsum layouts —
+`wq` [d, H, hd], `wk`/`wv` [d, Hkv, hd], `wo` [H, hd, d], `w_gate`/`w_in`
+[d, f], `w_out` [f, d] — so carrying the reference's weights across is a
+copy (`repro_torch.interop.lm_params_from_numpy`).
+
+With a KV cache (`KVCache`: preallocated [B, max_seq, Hkv, hd] tensors in
+the cache's dtype and the count of keys written), `attention` writes this
+call's K and V in place at that position. A one-token call (the decode
+step) then attends through `kernels.ops.decode_attention` — the CUDA
+kernel on the card — over the cache's keys [max(0, pos+1-window), pos+1),
+read in place. A longer call (prefill) attends with the reference's masked
+einsum over the keys written so far. The reference masks the whole
+max_seq cache instead; a masked key's weight, exp(NEG_INF - m), is exactly
+0 in f32, so both compute one function up to the order of the sums.
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.kernels import decode_attn as _attn
+from repro_torch.kernels import ops
+from repro_torch.models.config import ModelConfig
+
+NEG_INF = -2.0e38
+
+# Test hook: when set (by `plain_decode_attention`), the decode step's
+# attention runs the kernel's plain version on any device, so that a run
+# on the card can be held against the same run without the kernel.
+_PLAIN_DECODE = False
+
+
+@contextlib.contextmanager
+def plain_decode_attention():
+    """Test hook: inside this context the decode step attends through the
+    plain PyTorch version of `decode_attention` (on the card too), over the
+    same keys; it counts no launch."""
+    global _PLAIN_DECODE
+    before, _PLAIN_DECODE = _PLAIN_DECODE, True
+    try:
+        yield
+    finally:
+        _PLAIN_DECODE = before
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    return ((xf * torch.rsqrt(var + eps)) * (1.0 + scale.float())).to(x.dtype)
+
+
+def _rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
+    return 1.0 / theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32, device=device)
+                           / head_dim)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+               mrope_sections=None) -> torch.Tensor:
+    """x: [B, S, H, D]; positions: [B, S] or [3, B, S] for M-RoPE."""
+    D = x.shape[-1]
+    freqs = _rope_freqs(D, theta, x.device)  # [D/2]
+    if positions.ndim == 2:
+        angles = positions[..., None].float() * freqs  # [B, S, D/2]
+    else:
+        # M-RoPE: frequency bands partitioned into (t, h, w) sections.
+        sec = torch.repeat_interleave(torch.arange(3, device=x.device),
+                                      torch.tensor(mrope_sections, device=x.device))
+        pos = positions[sec]  # [D/2, B, S]: the positional stream of each band
+        angles = pos.movedim(0, -1).float() * freqs  # [B, S, D/2]
+    sin, cos = torch.sin(angles)[:, :, None, :], torch.cos(angles)[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def _attn_mask(S_q: int, S_kv: int, *, causal: bool, window: Optional[int], offset: int = 0,
+               device=None) -> torch.Tensor:
+    """[S_q, S_kv] additive mask. `offset` = absolute position of query 0."""
+    q_pos = torch.arange(S_q, device=device)[:, None] + offset
+    k_pos = torch.arange(S_kv, device=device)[None, :]
+    ok = torch.ones((S_q, S_kv), dtype=torch.bool, device=device)
+    if causal:
+        ok &= k_pos <= q_pos
+    if window is not None:
+        ok &= k_pos > q_pos - window
+    return torch.where(ok, 0.0, NEG_INF).float()
+
+
+@dataclasses.dataclass
+class KVCache:
+    """One attention layer's cache: k, v [B, max_seq, Hkv, hd], written in
+    place; `pos` keys of each row are written."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    pos: int = 0
+
+
+def _param(*shape, device, dtype) -> nn.Parameter:
+    return nn.Parameter(torch.zeros(shape, device=device, dtype=dtype), requires_grad=False)
+
+
+class Attention(nn.Module):
+    """An attention layer's parameters, in the reference's layouts."""
+
+    def __init__(self, cfg: ModelConfig, *, device=None, dtype=torch.float32):
+        super().__init__()
+        H, Hkv, hd, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_, cfg.d_model
+        kw = dict(device=device, dtype=dtype)
+        self.wq = _param(d, H, hd, **kw)
+        self.wk = _param(d, Hkv, hd, **kw)
+        self.wv = _param(d, Hkv, hd, **kw)
+        self.wo = _param(H, hd, d, **kw)
+        if cfg.qkv_bias:
+            self.bq = _param(H, hd, **kw)
+            self.bk = _param(Hkv, hd, **kw)
+            self.bv = _param(Hkv, hd, **kw)
+        if cfg.qk_norm:
+            self.q_norm = _param(hd, **kw)
+            self.k_norm = _param(hd, **kw)
+
+
+class MLP(nn.Module):
+    """A gated MLP's parameters: w_gate, w_in [d, f], w_out [f, d]."""
+
+    def __init__(self, cfg: ModelConfig, *, d_ff: Optional[int] = None, device=None,
+                 dtype=torch.float32):
+        super().__init__()
+        d, f = cfg.d_model, d_ff or cfg.d_ff
+        kw = dict(device=device, dtype=dtype)
+        self.w_gate = _param(d, f, **kw)
+        self.w_in = _param(d, f, **kw)
+        self.w_out = _param(f, d, **kw)
+
+
+def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """einsum("bsd,dhk->bshk", x, w) as one matrix product."""
+    B, S, d = x.shape
+    return (x @ w.reshape(d, -1)).reshape(B, S, *w.shape[1:])
+
+
+def attention(
+    cfg: ModelConfig,
+    p: Attention,
+    x: torch.Tensor,  # [B, S, d]
+    positions: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    kv_x: Optional[torch.Tensor] = None,  # attend over this sequence's keys
+    cache: Optional[KVCache] = None,
+) -> tuple[torch.Tensor, Optional[KVCache]]:
+    B, S, _ = x.shape
+    H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+
+    q = _project(x, p.wq)
+    src = x if kv_x is None else kv_x
+    k = _project(src, p.wk)
+    v = _project(src, p.wv)
+    if cfg.qkv_bias:
+        q, k, v = q + p.bq, k + p.bk, v + p.bv
+    if cfg.qk_norm:
+        q = rms_norm(q, p.q_norm, cfg.norm_eps)
+        k = rms_norm(k, p.k_norm, cfg.norm_eps)
+    if kv_x is None:  # RoPE only for self-attention
+        q = apply_rope(q, positions, cfg.rope_theta, cfg.mrope_sections)
+        k = apply_rope(k, positions, cfg.rope_theta, cfg.mrope_sections)
+
+    wo = p.wo.reshape(H * hd, -1)
+    if cache is not None:
+        # Write this call's K/V at `pos`, in place.
+        pos, end = cache.pos, cache.pos + S
+        if end > cache.k.shape[1]:
+            raise ValueError(f"the cache holds {cache.k.shape[1]} keys; this call writes "
+                             f"keys {pos}..{end - 1}")
+        cache.k[:, pos:end] = k.to(cache.k.dtype)
+        cache.v[:, pos:end] = v.to(cache.v.dtype)
+        cache.pos = end
+        if S == 1:
+            return _decode(cfg, q[:, 0], cache, window, end).reshape(B, 1, H * hd) @ wo, cache
+        k, v = cache.k[:, :end], cache.v[:, :end]
+        mask = _attn_mask(S, end, causal=True, window=window, offset=pos, device=x.device)
+    else:
+        mask = _attn_mask(S, k.shape[1], causal=causal and kv_x is None, window=window,
+                          device=x.device)
+
+    G = H // Hkv
+    qf = q.float().reshape(B, S, Hkv, G, hd)
+    scores = torch.einsum("bshgk,bthk->bhgst", qf, k.float()) / math.sqrt(hd)
+    if cfg.attn_softcap:
+        scores = cfg.attn_softcap * torch.tanh(scores / cfg.attn_softcap)
+    scores = scores + mask
+    w = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhgst,bthk->bshgk", w, v.float())
+    out = out.reshape(B, S, H * hd).to(x.dtype)
+    return out @ wo, cache
+
+
+def _decode(cfg: ModelConfig, q: torch.Tensor, cache: KVCache, window: Optional[int],
+            end: int) -> torch.Tensor:
+    """One query token [B, H, hd] over the cache's keys [start, end), where
+    the causal mask and the window leave them: [B, H, hd] in q's dtype."""
+    start = max(0, end - window) if window is not None else 0
+    q = q.contiguous()
+    if _PLAIN_DECODE:
+        return _attn.decode_attention_plain(q, cache.k[:, start:end], cache.v[:, start:end],
+                                            softcap=cfg.attn_softcap)
+    return ops.decode_attention(q, cache.k, cache.v, softcap=cfg.attn_softcap, start=start,
+                                end=end)
+
+
+def mlp(cfg: ModelConfig, p: MLP, x: torch.Tensor) -> torch.Tensor:
+    if cfg.act == "silu":
+        h = F.silu(x @ p.w_gate)
+    else:  # jax.nn.gelu's default: the tanh approximation
+        h = F.gelu(x @ p.w_gate, approximate="tanh")
+    return (h * (x @ p.w_in)) @ p.w_out
+
+
+# ------------------------------------------------------------------ init
+
+
+def _normal(gen: torch.Generator, shape, scale: float, dtype) -> torch.Tensor:
+    return (torch.randn(shape, generator=gen, device=gen.device, dtype=torch.float32)
+            * scale).to(dtype)
+
+
+def init_attention(cfg: ModelConfig, gen: torch.Generator, dtype) -> Attention:
+    """Random attention weights at the reference's scales (d^-0.5, and
+    (H·hd)^-0.5 for wo), drawn on the generator's device; biases and norm
+    scales zero."""
+    H, Hkv, hd, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_, cfg.d_model
+    p = Attention(cfg, device=gen.device, dtype=dtype)
+    s = d ** -0.5
+    p.wq.data = _normal(gen, (d, H, hd), s, dtype)
+    p.wk.data = _normal(gen, (d, Hkv, hd), s, dtype)
+    p.wv.data = _normal(gen, (d, Hkv, hd), s, dtype)
+    p.wo.data = _normal(gen, (H, hd, d), (H * hd) ** -0.5, dtype)
+    return p
+
+
+def init_mlp(cfg: ModelConfig, gen: torch.Generator, dtype, d_ff: Optional[int] = None) -> MLP:
+    d, f = cfg.d_model, d_ff or cfg.d_ff
+    p = MLP(cfg, d_ff=f, device=gen.device, dtype=dtype)
+    p.w_gate.data = _normal(gen, (d, f), d ** -0.5, dtype)
+    p.w_in.data = _normal(gen, (d, f), d ** -0.5, dtype)
+    p.w_out.data = _normal(gen, (f, d), f ** -0.5, dtype)
+    return p

@@ -13,8 +13,9 @@ PyTorch:
 Exact: segment and superstep min and max (values and iteration counts),
 membership, the commit, the transposes and the hash family's parts.
 Tolerance: segment and superstep sums rtol 1e-5 / atol 1e-6 (both add in
-f64, atomics in another order); attention 2e-5 in f32 and, in bf16, one
-rounding of the output (rtol 2^-7, atol 1e-5), which a 1 % error fails.
+f64, atomics in another order); attention 2e-5 in an f32 output (q in f32,
+over an f32 or a bf16 cache) and, in bf16, one rounding of the output
+(rtol 2^-7, atol 1e-5), which a 1 % error fails.
 """
 import numpy as np
 import pytest
@@ -288,6 +289,50 @@ def test_cuda_decode_attention_splits(cuda_device, D, dtype, softcap):
                 got = got.cpu().float()
                 torch.testing.assert_close(got, want, rtol=tol[0], atol=tol[1])
                 assert not torch.allclose(got * 1.01, want, rtol=tol[0], atol=tol[1])
+
+
+# The decode step's calls: q in f32 over a bf16 cache (an f32 model's), and
+# keys [start, end) of a preallocated cache read in place.
+MIXED = {"float32": (torch.float32, torch.float32), "bfloat16": (torch.bfloat16, torch.bfloat16),
+         "float32/bfloat16": (torch.float32, torch.bfloat16)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [16, 128])
+@pytest.mark.parametrize("dtypes", list(MIXED))
+@pytest.mark.parametrize("softcap", [0.0, 30.0])
+def test_cuda_decode_attention_key_range(cuda_device, D, dtypes, softcap):
+    """The kernel over keys [start, end) of a [B, S_max, Hkv, D] cache whose
+    keys outside the range are NaN (a read outside it would show), against
+    the plain version on the slice: one key, a ragged count, a range in the
+    middle, the last key, the whole cache, and a range long enough to split."""
+    from repro_torch.kernels.dispatch import LAUNCHES
+
+    qt, kt = MIXED[dtypes]
+    tol = DTYPES["float32" if qt == torch.float32 else "bfloat16"][1]
+    gen = torch.Generator().manual_seed(D)
+    for B, Hkv, G, S_max, ranges in ((3, 8, 3, 160, ((0, 1), (0, 37), (5, 64), (159, 160),
+                                                     (0, 160))),
+                                     (2, 2, 4, 20_001, ((1_000, 20_001), (0, 20_000)))):
+        q = torch.randn((B, Hkv * G, D), generator=gen).to(qt)
+        k, v = (torch.randn((B, S_max, Hkv, D), generator=gen).to(kt) for _ in range(2))
+        for start, end in ranges:
+            kd, vd = k.clone(), v.clone()
+            for t in (kd, vd):
+                t[:, :start] = float("nan")
+                t[:, end:] = float("nan")
+            want = pt_attn.decode_attention_plain(q, k[:, start:end], v[:, start:end],
+                                                  softcap=softcap).float()
+            before = LAUNCHES["decode_attention"]
+            got = pt_ops.decode_attention(q.to(cuda_device), kd.to(cuda_device),
+                                          vd.to(cuda_device), softcap=softcap, start=start,
+                                          end=end)
+            torch.cuda.synchronize()
+            assert LAUNCHES["decode_attention"] == before + 1
+            assert got.dtype == qt
+            got = got.cpu().float()
+            torch.testing.assert_close(got, want, rtol=tol[0], atol=tol[1])
+            assert not torch.allclose(got * 1.01, want, rtol=tol[0], atol=tol[1])
 
 
 def _commit_stream_inputs(seed, p, V, n, weighted, hub):

@@ -17,8 +17,10 @@ against its sim run, PageRank included (the exchange delivers the senders
 in the sim's order, so the one-sender-at-a-time sums are the same); every
 rank's result equal. Tolerance: PageRank values against the reference,
 rtol 1e-5 / atol 1e-8 (f32 sums in another order). PageRank with tol:
-the stop compares an L1 delta summed rank by rank (another order at
-w > 1) with tol=1e-4, which this graph's deltas do not come near.
+each subgraph's L1 delta, gathered across the ranks and added in the
+simulation's order (`engine.l1_total`), so dist stops where sim does
+even at a tol equal to a superstep's delta (worlds 2 and 4); against the
+reference, tol=1e-4, which this graph's deltas do not come near.
 Out-of-core: assignments and both counters, sharded against replicated
 and against the reference's replicated layout, bitwise.
 """
@@ -67,6 +69,7 @@ PARTS = 8  # the spawned worlds' stepper: nloc 4 at w=2, 2 at w=4
 OOC = dict(V=1 << 10, E=1 << 12, P=4, block=128)
 OOC_CASES = [(s, c) for s in ("ebv", "hdrf") for c in ("frozen", "window")]
 WORLDS = (2, 4)
+TIE_STEPS = range(2, 16)  # the supersteps whose sim L1 delta the tie test takes as tol
 
 CHILD = r"""
 import datetime, json, os, sys
@@ -124,6 +127,24 @@ for prog in job["programs"]:
         for f in ("messages_per_worker", "messages_per_step", "messages_per_step_worker",
                   "inner_iters_per_step", "comp_work_per_worker"):
             out[f"pipe_{prog}_{mode}_{f}"] = getattr(r.stats, f)
+# PageRank's tol stop at a tie: tol equal to the sim run's L1 delta at
+# superstep k (as the engine adds it), and the next float above it.
+ties, prev = [], torch.from_numpy(pipe.run("pr", num_iters=job["tie_steps"][0] - 1).values)
+for k in job["tie_steps"]:
+    at = torch.from_numpy(pipe.run("pr", num_iters=k).values)
+    tie = eng.l1_total(eng.l1_rows(at[None], prev[None], at.shape[1])).numpy()[0]
+    ties += [(f"exact{k}", tie), (f"above{k}", np.nextafter(tie, np.float32(np.inf)))]
+    prev = at
+for name, t in ties:
+    out[f"tie_{name}_tol"] = np.float32(t)
+    for mode in ("sim", "dist"):
+        r = pipe.run("pr", num_iters=50, tol=float(t),
+                     **(dict(mode="dist", mesh=mesh) if mode == "dist" else {}))
+        out[f"tie_{name}_{mode}_values"] = r.values
+        out[f"tie_{name}_{mode}_steps"] = np.int64(r.stats.supersteps)
+        for f in ("messages_per_worker", "messages_per_step", "messages_per_step_worker",
+                  "inner_iters_per_step", "comp_work_per_worker"):
+            out[f"tie_{name}_{mode}_{f}"] = getattr(r.stats, f)
 catch("driver", lambda: pipe.run("cc", mode="dist", mesh=mesh, driver="host"))
 catch("mode", lambda: pipe.run("cc", mode="bogus", mesh=mesh))
 wider = GraphPipeline(g, device="cpu").partition("ebg_chunked", parts=2 * world, block=64)
@@ -439,6 +460,17 @@ def test_sharded_outofcore_world1(world1, ooc_stores, ooc_reference, tmp_path, s
     assert sh.num_blocks == rep.num_blocks
 
 
+@pytest.mark.parametrize("layout", ["sharded", "replicated"])
+def test_outofcore_order_dir_a_rank(world1, ooc_stores, tmp_path, layout):
+    """Under torch.distributed every rank sorts the stream itself, into a
+    directory of its own under the shared order_workdir (the spawned world
+    of 2 above shares one workdir between its ranks)."""
+    oc.partition_store(ooc_stores[0], OOC["P"], "ebv", block=OOC["block"], device="cpu",
+                       state_layout=layout, mesh=world1, order_workdir=tmp_path / "o")
+    assert list((tmp_path / "o" / "rank0").glob("bucket-*.bin"))
+    assert not list((tmp_path / "o").glob("bucket-*.bin"))
+
+
 def test_sharded_outofcore_checks_its_mesh(world1, ooc_stores):
     """num_parts must divide over the mesh (checked before any collective:
     a 3-wide stand-in mesh), and the mesh must be on the state's device."""
@@ -473,7 +505,8 @@ def spawning(tmp_path_factory, small_powerlaw, tiny_powerlaw, ooc_graph):
     (base / "job.json").write_text(json.dumps(dict(
         statics=statics, cases=CASES, V=small_powerlaw.num_vertices,
         source=_source(small_powerlaw), programs=PROGRAMS, pipe_V=tiny_powerlaw.num_vertices,
-        ooc=True, ooc_cases=OOC_CASES, ooc_P=OOC["P"], ooc_block=OOC["block"])))
+        ooc=True, ooc_cases=OOC_CASES, ooc_P=OOC["P"], ooc_block=OOC["block"],
+        tie_steps=list(TIE_STEPS))))
     procs = []
     for w in WORLDS:
         work = base / f"w{w}"
@@ -551,6 +584,27 @@ def test_pipeline_dist_matches_sim_spawned(spawned, w, prog):
         np.testing.assert_array_equal(got["dist_" + k[4:]], got[k], err_msg=k[4:])
     assert got["dist_comp_work_per_worker"].sum() > 0
     assert got["dist_messages_per_worker"].shape == (w,)
+
+
+@pytest.mark.parametrize("step", TIE_STEPS)
+@pytest.mark.parametrize("tie", ["exact", "above"])
+@pytest.mark.parametrize("w", WORLDS)
+def test_pipeline_dist_tol_tie_spawned(spawned, w, tie, step):
+    """PageRank with tol equal to the sim run's L1 delta at superstep
+    `step` ("exact": that delta is not below it, so the run goes past it)
+    and the next float above it ("above": the run stops there at the
+    latest). mode="dist" stops where mode="sim" does, with the same values
+    and every BSPStats field equal: both add the subgraphs' deltas in one
+    order. (Summed rank by rank, as before, some of these stop a superstep
+    apart.)"""
+    outs, _, _ = spawned[w]
+    got = _ranks_agree(outs, f"tie_{tie}{step}_")
+    if tie == "above":
+        assert got["sim_steps"] <= step
+    else:
+        assert got["sim_steps"] > step
+    for k in [k for k in got if k.startswith("sim_")]:
+        np.testing.assert_array_equal(got["dist_" + k[4:]], got[k], err_msg=k[4:])
 
 
 @pytest.mark.parametrize("w", WORLDS)

@@ -174,6 +174,35 @@ def test_registry_lists_the_streaming_partitioners():
         pt_registry.register_partitioner("ebg")(lambda g, p: None)
 
 
+def test_list_scorers_matches_reference():
+    from repro.core import list_scorers as ref_list_scorers
+    from repro_torch.core import list_scorers, scorer_names
+
+    got, want = list_scorers(), ref_list_scorers()
+    assert [s.name for s in got] == [s.name for s in want] == list(scorer_names())
+    for a, b in zip(got, want):
+        assert (a.ce, a.cv, a.degree_term, a.balance) == (b.ce, b.cv, b.degree_term, b.balance)
+
+
+def test_partitioner_protocol_and_base_config_match_reference():
+    from repro.api import Partitioner as RefPartitioner, PartitionerConfig as RefConfig
+    from repro_torch.api import Partitioner, PartitionerConfig
+
+    assert Partitioner is pt_registry.Partitioner and PartitionerConfig is pt_config.PartitionerConfig
+    for spec in pt_registry.list_partitioners():  # every registered function is one
+        assert isinstance(spec.fn, Partitioner) and isinstance(spec.fn, RefPartitioner)
+        assert issubclass(spec.config_cls, PartitionerConfig)
+    assert not isinstance(42, Partitioner) and not isinstance(42, RefPartitioner)
+    # The base config: frozen, validated on construction and on replace.
+    assert PartitionerConfig().to_kwargs() == RefConfig().to_kwargs() == {}
+    cfg = pt_config.HDRFConfig()
+    assert cfg.replace(lam=2.0).to_kwargs()["lam"] == 2.0
+    with pytest.raises(ValueError, match="lam"):
+        cfg.replace(lam=0.0)
+    with pytest.raises(Exception, match="cannot assign"):
+        cfg.lam = 3.0
+
+
 def test_resolve_device_never_falls_back(monkeypatch):
     assert dispatch.resolve_device("cpu") == torch.device("cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

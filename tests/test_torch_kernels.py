@@ -243,6 +243,57 @@ def test_decode_attention_checks_its_arguments():
         pt_attn.decode_attention(q.half(), k.half(), k.half())
 
 
+# The decode step's calls: keys [start, end) of a preallocated cache, read
+# in place (end - start of one key, a ragged count, a window in the middle,
+# the whole cache), and q in f32 over a bf16 cache, as an f32 model decodes
+# over the reference serving driver's bf16 caches.
+KEY_RANGES = [(0, 1), (0, 37), (5, 64), (100, 131), (0, 160)]
+MIXED = {"float32": (jnp.float32, jnp.float32), "bfloat16": (jnp.bfloat16, jnp.bfloat16),
+         "float32/bfloat16": (jnp.float32, jnp.bfloat16)}
+
+
+@pytest.mark.parametrize("softcap", [0.0, 30.0])
+@pytest.mark.parametrize("dtypes", list(MIXED))
+@pytest.mark.parametrize("start,end", KEY_RANGES)
+def test_decode_attention_key_range_matches_reference(start, end, dtypes, softcap):
+    """`ops.decode_attention(q, k, v, start=, end=)` against the reference
+    oracle on the sliced keys, at the reduced configs' widths (Hq 4 over
+    Hkv 2, head_dim 16); exactly the plain version on the slice."""
+    jq, jkv = MIXED[dtypes]
+    B, Hq, Hkv, D, S_max = 3, 4, 2, 16, 160
+    rng = np.random.default_rng(start * 1000 + end)
+    q = jnp.array(rng.standard_normal((B, Hq, D)).astype(np.float32), jq)
+    k, v = (jnp.array(rng.standard_normal((B, S_max, Hkv, D)).astype(np.float32), jkv)
+            for _ in range(2))
+    ref = ref_ops.decode_attention(q, k[:, start:end], v[:, start:end], impl="ref",
+                                   softcap=softcap)
+    pq, pk, pv = (_t(np.asarray(a.astype(jnp.float32))).to(torch.float32 if a.dtype == jnp.float32
+                                                          else torch.bfloat16)
+                  for a in (q, k, v))
+    got = pt_ops.decode_attention(pq, pk, pv, softcap=softcap, start=start, end=end)
+    assert got.dtype == pq.dtype and tuple(got.shape) == (B, Hq, D)
+    assert ref.dtype == jq
+    rtol, atol = DTYPES["float32" if jq == jnp.float32 else "bfloat16"][2]
+    want = _t(np.asarray(ref, np.float32))
+    torch.testing.assert_close(got.float(), want, rtol=rtol, atol=atol)
+    assert not torch.allclose(got.float() * 1.01, want, rtol=rtol, atol=atol)
+    plain = pt_attn.decode_attention_plain(pq, pk[:, start:end], pv[:, start:end],
+                                           softcap=softcap)
+    assert torch.equal(got, plain)
+
+
+def test_decode_attention_checks_its_range_and_dtypes():
+    q = torch.zeros((1, 4, 16))
+    k = torch.zeros((1, 8, 2, 16))
+    for start, end in ((0, 0), (3, 2), (-1, 4), (0, 9)):
+        with pytest.raises(ValueError, match="start"):
+            pt_ops.decode_attention(q, k, k, start=start, end=end)
+    with pytest.raises(TypeError, match="f32 or bf16"):
+        pt_ops.decode_attention(q.bfloat16(), k, k)  # bf16 q over an f32 cache
+    with pytest.raises(TypeError, match="v must be torch.bfloat16"):
+        pt_ops.decode_attention(q, k.bfloat16(), k)  # k and v of two dtypes
+
+
 # ------------------------------------------------------------ the import rule
 
 

@@ -146,10 +146,43 @@ Phases; a failed check raises and the script exits non-zero:
               decode_attention on layer 0's live cache (keys [0, 1,088)),
               with a bf16 and an f32 query, against its plain version and
               timed beside its bound and SDPA. One {"lm_serve": ...}
-              stdout line. `--lm-only` runs the build and this phase alone.
+              stdout line.
+  7. lm_families
+              the other LM families at their published widths, seeded random
+              bf16 weights drawn on the card, B = 8, 32 greedy tokens; the
+              launch counts zeroed just before each kernel run and read just
+              after. phi3_5_moe (16 of its 32 layers: all 32 pass the card's
+              memory; 16 experts top-2, prompts of 1,024) through generate:
+              decode_attention exactly 16 x 32 times, 0 in the plain run;
+              every step's logits against the plain attention fed the same
+              tokens, and the same steps on a copy with capacity_factor 16
+              (nothing drops) against its full forward, each within
+              LM_FAMILY_ATOL with a control that fails it, over the (row,
+              step) pairs whose experts the two runs chose alike in every
+              layer (RouteSpy; a pair where a bf16 near-tie in the router
+              chose another expert is counted, not compared); the EBV
+              placement (core/placement.py) of layer 0's routing of the
+              prefill's 8,192 tokens over 4 devices beside a seeded random
+              one, with placement_report for both, and one decode step with
+              that expert_perm and the expert weights moved to their slots,
+              equal to the unpermuted step bit for bit. mamba2_780m whole
+              (48 SSM layers, prompts of 1,024): no kernel launch, every
+              decode step against the full forward. seamless_m4t_large_v2
+              whole (24 + 24 layers) over 1,024 seeded random encoder frames,
+              decoder prompts of 16: the serve steps take the encoder's
+              output computed once; decode_attention exactly 24 x 32 x 2
+              times (self- and cross-attention, G = 1); every step against
+              the plain attention and against the full forward. Each
+              model's prefill s, decode ms a token (p50, p99), tokens/s and
+              peak memory. decode_attention's kernels entries at phi3's
+              step, seamless's self- and cross-attention, and the D = 512
+              build (no config path), each held at the whole range and at
+              key ranges with NaN outside, timed beside its bound and SDPA.
+              One {"lm_families": ...} stdout line. `--lm-only` runs the
+              build and phases 6 and 7 alone.
 
-Prints the card's name and power limit, the {"serve": ...}, {"lm_serve": ...} and
-{"kernels": [...]} lines, and last
+Prints the card's name and power limit, the {"serve": ...}, {"lm_serve": ...},
+{"lm_families": ...} and {"kernels": [...]} lines, and last
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 It needs the repository around it and a CUDA card; without either it fails.
 """
@@ -259,6 +292,33 @@ LM = dict(config="llama3_2_3b", batch=8, prompt_len=1024, new_tokens=64, seed=0)
 # layers). Every comparison also holds a control, the same logits against
 # another row's, which must fail the limit.
 LM_LOGIT_ATOL = 0.125
+# The other LM families (phase 7): B = 8, 32 greedy tokens, seeded random
+# bf16 weights drawn on the card. phi3_5_moe (src/repro_torch/configs/
+# phi3_5_moe.py, Microsoft's published Phi-3.5-MoE config) at its published
+# widths with its depth cut from 32 to 16 layers (all 32 are ~84 GB in bf16,
+# past the card's 80 GB), prompts of 1,024 tokens, its EBV placement over 4
+# devices; the capacity_factor of the copy held against the full forward
+# (16 = E: cap = T·k, nothing drops). mamba2_780m whole, prompts of 1,024
+# (chunk 256; the full forward's 1,056 takes chunk 176). seamless_m4t_
+# large_v2 whole (24 + 24 layers), 1,024 encoder frames, decoder prompts of
+# 16 tokens.
+LM_FAMILIES = dict(batch=8, new_tokens=32, seed=0)
+PHI3 = dict(config="phi3_5_moe", n_layers=16, prompt_len=1024, nodrop_capacity_factor=16.0,
+            devices=4)
+MAMBA2 = dict(config="mamba2_780m", prompt_len=1024)
+SEAMLESS = dict(config="seamless_m4t_large_v2", prompt_len=16, enc_frames=1024)
+# Each model's bf16 logit limit; a control, the same logits against another
+# row's, must fail it. phi3 and seamless: LM_LOGIT_ATOL's four bf16 steps
+# at |logit| < 8. mamba2: 16 such steps. Its 48 layers round their outputs
+# to bf16 one after another and a rounding moves the SSM state of every
+# later position: decode and the full forward (another chunk, another order
+# of f32 sums) came 0.246 apart on an H100 80GB HBM3 at 700 W. The
+# algorithm itself is held in f32 (MAMBA2_F32_ATOL, the reference's
+# decode ≡ forward tolerance).
+LM_FAMILY_ATOL = {"phi3_5_moe": 0.125, "mamba2_780m": 0.5, "seamless_m4t_large_v2": 0.125}
+MAMBA2_F32_ATOL = 2e-3
+# decode_attention's D = 512 build: (B, Hq, Hkv, D, S) of a GQA decode step.
+WIDE_ATTN = dict(B=8, Hq=32, Hkv=8, D=512, S=4096)
 
 
 def log(msg: str) -> None:
@@ -1298,9 +1358,6 @@ def phase_outofcore(g, dev):
         launches = dict(dispatch.LAUNCHES)
         check(launches.get("ebg_commit", 0) > 0, "the out-of-core path launched ebg_commit no time")
         check(res.result.part.device.type == "cuda", "the out-of-core partition is not on the card")
-        host_split = st("oc_host_side", outofcore_host_side, ordered, g.num_vertices, block, dev)
-    log(f"outofcore: partition_store's host side alone (its group loop with no commit): "
-        f"{host_split}")
     E = g.num_edges
 
     # The in-memory driver's stream at the same block, with its counters;
@@ -1319,18 +1376,6 @@ def phase_outofcore(g, dev):
         t1e.record()
         t1e.synchronize()
         timing["commit_stream_ms"] = t0e.elapsed_time(t1e)
-        # The same stream at block 2,048, the largest block whose staging
-        # fits the pipelined kernel at p = 32 (timing only; its padding is
-        # whole blocks of 2,048 too).
-        half = block // 2
-        fresh = mem.new_state(PARTS, g.num_vertices)
-        t0e.record()
-        ebg.ebg_commit_stream(*fresh, mem.u, mem.v, mem.valid, mem.coef, block=half,
-                              balance=mem.balance)
-        t1e.record()
-        t1e.synchronize()
-        timing["commit_stream_ms_half_block"] = t0e.elapsed_time(t1e)
-        timing["half_block"] = half
         mid = slice((res.num_blocks // 2) * block, (res.num_blocks // 2 + 1) * block)
         args = (keep, e_c, v_c, mem.u[mid], mem.v[mid], mem.valid[mid], mem.coef)
         timing["block_call_ms"] = cuda_ms(lambda: ebg.ebg_commit_block(*args), reps=20)
@@ -1340,8 +1385,7 @@ def phase_outofcore(g, dev):
     order, parts, e_c, v_c = st("oc_in_memory", in_memory)
     timing["commit_ms_per_block"] = timing["commit_stream_ms"] / res.num_blocks
     log(f"outofcore: the commit kernel at block {block}: {timing['commit_stream_ms']:.1f} ms "
-        f"the stream, {timing['commit_ms_per_block'] * 1e3:.2f} µs a block; at block "
-        f"{timing['half_block']}: {timing['commit_stream_ms_half_block']:.1f} ms the stream; one "
+        f"the stream, {timing['commit_ms_per_block'] * 1e3:.2f} µs a block; one "
         f"ebg_commit_block call {timing['block_call_ms']:.3f} ms")
     check(np.array_equal(res.result.order.numpy(), order),
           "degree_sum_stream's permutation differs from degree_sum_order's")
@@ -1364,7 +1408,6 @@ def phase_outofcore(g, dev):
         f"{res.replication_factor:.6f}, partition_metrics {m.replication_factor:.6f}")
     row = dict(edges=E, blocks=res.num_blocks, disk_bytes=disk, stage_s=dict(st.s),
                launches=launches, partition_launches=launches_partition, **timing,
-               host_side_s=host_split,
                edges_per_s=E / part_s,
                edges_per_s_with_order=E / (part_s + st.s["oc_order"]),
                rf_counters=res.replication_factor, rf_metrics=m.replication_factor,
@@ -1378,32 +1421,6 @@ def phase_outofcore(g, dev):
             launches[k] = launches.get(k, 0) + v
     row["phase_s"] = time.perf_counter() - t0
     return row
-
-
-def outofcore_host_side(ordered, num_vertices, block, dev):
-    """partition_store's host work a group, timed by itself: the ordered
-    stream's bucket reads and sorts, the intake validation, and the padding
-    with its upload to the card (synchronized), with no commit."""
-    from repro_torch.core import outofcore as oc
-    from repro_torch.core.streaming import pad_blocks, validate_edge_stream
-
-    group = block * max(1, oc.GROUP_EDGES // block)
-    split = dict(read_s=0.0, validate_s=0.0, upload_s=0.0)
-    blocks = ordered.iter_blocks(group)
-    while True:
-        t = time.perf_counter()
-        item = next(blocks, None)
-        split["read_s"] += time.perf_counter() - t
-        if item is None:
-            return split
-        gsrc, gdst, _ = item
-        t = time.perf_counter()
-        validate_edge_stream(gsrc, gdst, num_vertices=num_vertices)
-        split["validate_s"] += time.perf_counter() - t
-        t = time.perf_counter()
-        pad_blocks(gsrc, gdst, None, block, dev)
-        sync()
-        split["upload_s"] += time.perf_counter() - t
 
 
 def outofcore_build(dev):
@@ -2064,8 +2081,9 @@ def lm_compare(got_toks, got, want_toks, want, tol):
     return worst, compared
 
 
-def lm_generate(cfg, params, prompt, plain=False):
-    """One generate call through the serving entry point: (tokens [B, N],
+def lm_generate(cfg, params, prompt, plain=False, N=None):
+    """One generate call through the serving entry point, N new tokens
+    (LM's by default): (tokens [B, N],
     logits [B, N + 1, vocab] of the prefill and each decode step, prefill
     ms, per-token decode ms, host wall s), each step timed by a CUDA event
     recorded as it is enqueued."""
@@ -2074,7 +2092,7 @@ def lm_generate(cfg, params, prompt, plain=False):
     from repro_torch.launch.serve import generate
     from repro_torch.models import layers
 
-    N = LM["new_tokens"]
+    N = LM["new_tokens"] if N is None else N
     events, logits = [], []
 
     def on_step(t, lg):
@@ -2169,7 +2187,7 @@ def phase_lm(dev):
     # The plain decode attention fed the kernel run's tokens: every step's
     # logits comparable, near-ties or not; its caches feed the kernel entries.
     dispatch.reset_launches()
-    forced, caches = lm_teacher_forced(cfg, params, prompt, toks)
+    _, forced, _, _, _, caches = lm_steps(cfg, params, prompt, N, forced=toks, plain=True)
     check(dispatch.LAUNCHES.get("decode_attention", 0) == 0,
           "lm: the teacher-forced plain run launched the kernel")
     forced_err = float((logits.float() - forced.float()).abs().max())
@@ -2215,45 +2233,19 @@ def phase_lm(dev):
     return out, entries
 
 
-def lm_teacher_forced(cfg, params, prompt, toks):
-    """The serving steps on the plain decode attention, fed `toks` [B, N]:
-    (logits [B, N + 1, vocab] of the prefill and each step, the caches)."""
-    from repro_torch.models import layers, steps
-
-    S0, N = prompt.shape[1], toks.shape[1]
-    with torch.no_grad(), layers.plain_decode_attention():
-        logits, caches = steps.make_prefill_step(cfg, S0 + N)(params, dict(tokens=prompt))
-        out = [logits]
-        serve = steps.make_serve_step(cfg)
-        for t in range(N):
-            logits, caches = serve(params, caches, dict(token=toks[:, t:t + 1].long(),
-                                                        pos=S0 + t))
-            out.append(logits)
-    return torch.stack(out, dim=1), caches
-
-
-def measure_lm_attention(cfg, cache, lm_launches, dev):
-    """decode_attention at the LM path's shapes: a bf16 query (and an f32
-    one, the f32-over-bf16 build) over all 1,088 keys of layer 0's live
-    cache, written by the serving steps; timed beside its bound, the plain
-    version and SDPA on the same keys. Each is also held at key ranges the
-    decode steps read, [0, 1,025) and [0, 1,057), and one from a start past
-    0, on a copy of the cache whose rows outside the range are NaN."""
+def attention_entry(name, q, k, v, end, ranges, launches, shape, launches_of):
+    """decode_attention's kernels entry for one decode shape: q [B, Hq, D]
+    over keys [0, end) of k, v [B, S, Hkv, D] (a live cache read in place,
+    or a fresh K and V), held against the plain version at ATTN_TOL with
+    its x1.01 control, also at each key range of `ranges` on a copy of k
+    and v that is NaN outside it; timed beside its bound, the plain version
+    and SDPA on the same keys (a bf16 query)."""
     from repro_torch.kernels import decode_attn, ops
 
-    B = LM["batch"]
-    k, v, end = cache.k, cache.v, cache.pos
-    check(end == LM["prompt_len"] + LM["new_tokens"] == k.shape[1],
-          "lm: the cache is not full after the decode steps")
-    Hq, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
-    gen = torch.Generator(device=dev).manual_seed(21)
-    entries = []
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    ranges = ((0, LM["prompt_len"] + 1), (0, LM["prompt_len"] + 33), (37, end - 27))
+    B, Hq, D = q.shape
+    Hkv = k.shape[2]
 
-    def held(name, q, kc, vc, lo, hi):
-        """The kernel over keys [lo, hi) of kc, vc against the plain version
-        over the live cache's rows [lo, hi), at ATTN_TOL with its control."""
+    def held(kc, vc, lo, hi):
         got = ops.decode_attention(q, kc, vc, start=lo, end=hi)
         want = decode_attn.decode_attention_plain(q, k[:, lo:hi], v[:, lo:hi]).float()
         rtol, atol = ATTN_TOL[q.dtype]
@@ -2269,48 +2261,525 @@ def measure_lm_attention(cfg, cache, lm_launches, dev):
               f"{name} keys [{lo}, {hi}): the limit passes the control")
         return got, reading
 
+    got, reading = held(k, v, 0, end)
+    at_ranges = {}
+    for lo, hi in ranges:
+        kn, vn = k.clone(), v.clone()
+        for t in (kn, vn):
+            t[:, :lo] = float("nan")
+            t[:, hi:] = float("nan")
+        at_ranges[f"[{lo}, {hi})"] = held(kn, vn, lo, hi)[1]
+        del kn, vn
+    ms = cuda_ms(lambda: ops.decode_attention(q, k, v, start=0, end=end), reps=50)
+    plain_ms = cuda_ms(lambda: decode_attn.decode_attention_plain(q, k[:, :end], v[:, :end]),
+                       reps=5)
+    q4, k4, v4 = q.to(k.dtype)[:, :, None], k[:, :end].transpose(1, 2), \
+        v[:, :end].transpose(1, 2)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    library_ms = cuda_ms(lambda: sdpa(q4, k4, v4, enable_gqa=True), reps=50)
+    io_bytes = nbytes(q, got) + 2 * B * end * Hkv * D * k.element_size()
+    n_ops = 4.0 * B * Hq * end * D
+    peak = BF16_FLOPS if q.dtype == torch.bfloat16 else F32_FLOPS
+    bound = max(io_bytes / HBM_BYTES_PER_S, n_ops / peak)
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    nsplit = decode_attn.split_count(B, end, Hkv, Hq // Hkv, sms,
+                                     decode_attn.tile_keys(D, k.dtype))
+    rtol, atol = ATTN_TOL[q.dtype]
+    return dict(
+        name=name, route="cuda", source="src/repro_torch/kernels/csrc/decode_attn.cu",
+        replaces="src/repro/kernels/decode_attn.py:61", launches=launches,
+        launches_of=launches_of, max_abs_err=reading["max_abs_err"], ms=ms, plain_ms=plain_ms,
+        bound_ms=1e3 * bound,
+        bound_by="bytes" if io_bytes / HBM_BYTES_PER_S >= n_ops / peak else "operations",
+        library_ms=library_ms,
+        library="F.scaled_dot_product_attention(enable_gqa=True), bf16 q",
+        limit=f"rtol {rtol}, atol {atol}", over_limit=reading["over_limit"],
+        control_over_limit=reading["control_over_limit"], key_ranges_nan_outside=at_ranges,
+        shape=f"{shape}: B={B}, Hq={Hq}, Hkv={Hkv}, D={D}, keys [0, {end}) of "
+              f"[{B}, {k.shape[1]}, {Hkv}, {D}] {str(k.dtype).replace('torch.', '')}, q "
+              f"{str(q.dtype).replace('torch.', '')}, {nsplit} splits",
+    )
+
+
+def measure_lm_attention(cfg, cache, lm_launches, dev):
+    """decode_attention at the LM path's shapes: a bf16 query (and an f32
+    one, the f32-over-bf16 build) over all 1,088 keys of layer 0's live
+    cache, written by the serving steps; timed beside its bound, the plain
+    version and SDPA on the same keys. Each is also held at key ranges the
+    decode steps read, [0, 1,025) and [0, 1,057), and one from a start past
+    0, on a copy of the cache whose rows outside the range are NaN."""
+    B = LM["batch"]
+    k, v, end = cache.k, cache.v, cache.pos
+    check(end == LM["prompt_len"] + LM["new_tokens"] == k.shape[1],
+          "lm: the cache is not full after the decode steps")
+    gen = torch.Generator(device=dev).manual_seed(21)
+    ranges = ((0, LM["prompt_len"] + 1), (0, LM["prompt_len"] + 33), (37, end - 27))
+    entries = []
     for name, qt in (("decode_attention.llama3_2_3b", torch.bfloat16),
                      ("decode_attention.llama3_2_3b.f32q", torch.float32)):
-        q = torch.randn((B, Hq, D), generator=gen, device=dev).to(qt)
-        got, reading = held(name, q, k, v, 0, end)
-        rtol, atol = ATTN_TOL[qt]
-        at_ranges = {}
-        for lo, hi in ranges:
-            kn, vn = k.clone(), v.clone()
-            for t in (kn, vn):
-                t[:, :lo] = float("nan")
-                t[:, hi:] = float("nan")
-            at_ranges[f"[{lo}, {hi})"] = held(name, q, kn, vn, lo, hi)[1]
-            del kn, vn
-        ms = cuda_ms(lambda: ops.decode_attention(q, k, v, start=0, end=end), reps=50)
-        plain_ms = cuda_ms(lambda: decode_attn.decode_attention_plain(q, k[:, :end],
-                                                                      v[:, :end]), reps=5)
-        q4, k4, v4 = q.to(k.dtype)[:, :, None], k[:, :end].transpose(1, 2), \
-            v[:, :end].transpose(1, 2)
-        sdpa = torch.nn.functional.scaled_dot_product_attention
-        library_ms = cuda_ms(lambda: sdpa(q4, k4, v4, enable_gqa=True), reps=50)
-        io_bytes = nbytes(q, got) + 2 * B * end * Hkv * D * k.element_size()
-        n_ops = 4.0 * B * Hq * end * D
-        peak = BF16_FLOPS if qt == torch.bfloat16 else F32_FLOPS
-        bound = max(io_bytes / HBM_BYTES_PER_S, n_ops / peak)
-        nsplit = decode_attn.split_count(B, end, Hkv, Hq // Hkv, sms,
-                                         decode_attn.tile_keys(D, k.dtype))
-        entries.append(dict(
-            name=name, route="cuda", source="src/repro_torch/kernels/csrc/decode_attn.cu",
-            replaces="src/repro/kernels/decode_attn.py:61", launches=lm_launches,
-            max_abs_err=reading["max_abs_err"], ms=ms, plain_ms=plain_ms, bound_ms=1e3 * bound,
-            bound_by="bytes" if io_bytes / HBM_BYTES_PER_S >= n_ops / peak else "operations",
-            library_ms=library_ms,
-            library="F.scaled_dot_product_attention(enable_gqa=True), bf16 q",
-            limit=f"rtol {rtol}, atol {atol}", over_limit=reading["over_limit"],
-            control_over_limit=reading["control_over_limit"],
-            key_ranges_nan_outside=at_ranges,
-            shape=f"llama3_2_3b decode step: B={B}, Hq={Hq}, Hkv={Hkv}, D={D}, keys [0, {end}) "
-                  f"of layer 0's live [{B}, {k.shape[1]}, {Hkv}, {D}] bf16 cache, q "
-                  f"{str(qt).replace('torch.', '')}, {nsplit} splits",
-        ))
-        del q, got, q4, k4, v4
+        q = torch.randn((B, cfg.n_heads, cfg.head_dim_), generator=gen, device=dev).to(qt)
+        entries.append(attention_entry(
+            name, q, k, v, end, ranges, lm_launches, "llama3_2_3b decode step, layer 0's live "
+            "cache", "decode_attention in the lm phase's generate call"))
+        del q
     return entries
+
+
+# ------------------------------------------------- the other LM families
+
+
+class RouteSpy:
+    """Records the experts each MoE router call chooses (`models.moe.route`,
+    patched while the spy is entered): one [T, k] tensor of expert ids a
+    call, each token's ids sorted, so that two runs' choices compare as
+    sets. A run makes one call a MoE layer a forward, in layer order."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self._real = moe.route
+
+        def spy(cfg, router, xf):
+            out = self._real(cfg, router, xf)
+            self.calls.append(out[2].sort(dim=-1).values)
+            return out
+
+        moe.route = spy
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+
+        moe.route = self._real
+
+    def by_position(self, moe_layers, B):
+        """[moe_layers, B, positions, k]: each layer's choices over the
+        run's positions (a prefill or a full forward: B·S tokens a call; a
+        decode step: B)."""
+        per = [[] for _ in range(moe_layers)]
+        for i, c in enumerate(self.calls):
+            per[i % moe_layers].append(c.reshape(B, -1, c.shape[-1]))
+        return torch.stack([torch.cat(x, dim=1) for x in per])
+
+
+def lm_steps(cfg, params, prompt, N, *, forced=None, plain=False, enc=None):
+    """The serving steps (`make_prefill_step`, then N `make_serve_step`
+    calls): greedy, or fed `forced` [B, N] (teacher-forced). `enc`: the
+    encoder-decoder's inputs, {"enc_embeds": frames} for the prefill and
+    {"enc_out": ...} for the steps. Returns (tokens [B, N], logits [B, N+1,
+    vocab], prefill ms, per-step ms (CUDA events recorded as each step is
+    enqueued), host wall s, the caches)."""
+    import contextlib
+
+    from repro_torch.models import layers, steps
+
+    enc = enc or {}
+    S0 = prompt.shape[1]
+    prefill_batch = dict(tokens=prompt, **{k: v for k, v in enc.items() if k == "enc_embeds"})
+    step_enc = {k: v for k, v in enc.items() if k == "enc_out"}
+    events, out, toks = [], [], []
+    start = torch.cuda.Event(enable_timing=True)
+    sync()
+    t0 = time.perf_counter()
+    start.record()
+    with torch.no_grad(), layers.plain_decode_attention() if plain else contextlib.nullcontext():
+        logits, caches = steps.make_prefill_step(cfg, S0 + N)(params, prefill_batch)
+        serve = steps.make_serve_step(cfg)
+        for t in range(N + 1):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            events.append(ev)
+            out.append(logits)
+            if t == N:
+                break
+            tok = forced[:, t:t + 1].long() if forced is not None else \
+                torch.argmax(logits, dim=-1)[:, None]
+            toks.append(tok)
+            logits, caches = serve(params, caches, dict(token=tok, pos=S0 + t, **step_enc))
+    sync()
+    wall = time.perf_counter() - t0
+    step_ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+    return (torch.cat(toks, dim=1), torch.stack(out, dim=1), start.elapsed_time(events[0]),
+            step_ms, wall, caches)
+
+
+def logit_check(label, got, want, atol, mask=None):
+    """Max |logit error| of got against want [B, N+1, vocab] over the (row,
+    step) pairs of `mask` (all by default), within atol; a control (want's
+    last step rolled to another row) must fail it. Returns (max error,
+    pairs compared, control, each step's max error over its compared rows)."""
+    err = (got.float() - want.float()).abs().amax(dim=-1).cpu()  # [B, N+1]
+    mask = torch.ones_like(err, dtype=torch.bool) if mask is None else mask
+    worst = float(err[mask].max()) if bool(mask.any()) else 0.0
+    per_step = [float(err[:, t][mask[:, t]].max()) if bool(mask[:, t].any()) else None
+                for t in range(err.shape[1])]
+    control = float((got[:, -1].float() - want[:, -1].roll(1, dims=0).float()).abs().max())
+    check(worst <= atol, f"{label}: logits differ by {worst} > {atol}; by step: {per_step}")
+    check(control > atol, f"{label}: the limit passes the control (another row's logits, "
+                          f"{control})")
+    return worst, int(mask.sum()), control, per_step
+
+
+def family_stats(B, N, prefill_ms, step_ms, wall):
+    decode_s = sum(step_ms) / 1e3
+    return dict(prefill_s=prefill_ms / 1e3, decode_ms_p50=float(np.percentile(step_ms, 50)),
+                decode_ms_p99=float(np.percentile(step_ms, 99)), tokens_per_s=B * N / decode_s,
+                tokens_per_s_with_prefill=B * N / wall, generate_wall_s=wall,
+                peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+
+def lm_family_prompt(cfg, B, S0, dev):
+    from repro_torch.serve.padding import bucket_size, pad_batch_rows
+
+    rng = np.random.default_rng(LM_FAMILIES["seed"])
+    prompt = pad_batch_rows(rng.integers(0, cfg.vocab, (B, S0)), bucket_size(B))
+    return torch.from_numpy(prompt).to(dev)
+
+
+def phase_lm_families(dev):
+    """The MoE (with EBV expert placement), SSM and encoder-decoder families
+    on the card, each at its published widths with seeded random bf16
+    weights drawn there, B = 8, 32 greedy tokens (module docstring, phase
+    7). Returns (record, kernels entries)."""
+    t_phase = time.perf_counter()
+    out, entries = {}, []
+    out["phi3_5_moe"], e = family_phi3(dev)
+    entries += e
+    out["mamba2_780m"] = family_mamba2(dev)
+    out["seamless_m4t_large_v2"], e = family_seamless(dev)
+    entries += e
+    entries.append(measure_wide_attention(dev))
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"lm_families: phase {out['phase_s']:.1f} s")
+    return out, entries
+
+
+def family_phi3(dev):
+    """phi3_5_moe, 16 of its 32 layers at the published widths: generate
+    (kernel launches exact), every step against the plain attention fed the
+    same tokens and, on a copy with capacity_factor 16 (nothing drops),
+    against the full forward; the comparisons skip the (row, step) pairs
+    whose expert choice the two runs made differently in some layer (a
+    bf16 near-tie in the router), and count them. Then the EBV placement of
+    layer 0's prefill routing, and one decode step with that expert_perm
+    and the weights permuted to match, equal to the unpermuted step."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.core import placement
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import moe, steps, transformer
+
+    c = PHI3
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(configs.get_config(c["config"]), n_layers=c["n_layers"])
+    nodrop = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=c["nodrop_capacity_factor"]))
+    B, S0, N = LM_FAMILIES["batch"], c["prompt_len"], LM_FAMILIES["new_tokens"]
+    atol = LM_FAMILY_ATOL[cfg.name]
+    t = time.perf_counter()
+    params = transformer.init_params(cfg, torch.Generator(device=dev).manual_seed(
+        LM_FAMILIES["seed"]), torch.bfloat16)
+    sync()
+    init_s = time.perf_counter() - t
+    prompt = lm_family_prompt(cfg, B, S0, dev)
+    lm_generate(cfg, params, prompt[:, :64], N=2)  # warm-up: cuBLAS, the allocator
+
+    dispatch.reset_launches()
+    with RouteSpy() as spy_k:
+        toks, logits, prefill_ms, step_ms, wall = lm_generate(cfg, params, prompt, N=N)
+    launches = dict(dispatch.LAUNCHES)
+    want = cfg.n_layers * N
+    check(launches.get("decode_attention", 0) == want,
+          f"phi3: decode_attention launched {launches.get('decode_attention', 0)} times in the "
+          f"generate call, not {want}")
+    check(logits.shape == (B, N + 1, cfg.vocab) and bool(torch.isfinite(logits).all()),
+          "phi3: logits not finite or out of shape")
+    stats = family_stats(B, N, prefill_ms, step_ms, wall)
+    log(f"lm_families: phi3_5_moe ({cfg.n_layers} layers) generate: prefill "
+        f"{prefill_ms:.1f} ms, decode p50 {stats['decode_ms_p50']:.2f} ms, {want} launches")
+
+    # The same steps on the plain attention, fed the kernel run's tokens.
+    dispatch.reset_launches()
+    with RouteSpy() as spy_p:
+        _, plain_logits, _, plain_step_ms, _, caches = lm_steps(cfg, params, prompt, N,
+                                                                forced=toks, plain=True)
+    check(dispatch.LAUNCHES.get("decode_attention", 0) == 0, "phi3: the plain run launched")
+    rk = spy_k.by_position(cfg.n_layers, B)
+    same = (rk == spy_p.by_position(cfg.n_layers, B)).all(-1).all(0).cpu()  # [B, S0 + N]
+    plain_err, plain_pairs, plain_control, plain_steps = logit_check(
+        "phi3 kernel vs plain", logits, plain_logits, atol, same[:, S0 - 1:])
+    cap = moe.capacity(cfg, B * S0)
+    prefill_drops = [int((torch.bincount(rk[layer, :, :S0].reshape(-1),
+                                         minlength=cfg.moe.num_experts) - cap).clamp(min=0)
+                         .sum()) for layer in range(cfg.n_layers)]
+    # Layer 0's prefill routing → the EBV placement over 4 devices, beside a
+    # seeded random placement.
+    pairs = placement.routing_pairs(rk[0, :, :S0].reshape(-1, cfg.moe.top_k))
+    E, D = cfg.moe.num_experts, c["devices"]
+    t = time.perf_counter()
+    perm = placement.ebg_expert_placement(pairs, E, D)
+    place_s = time.perf_counter() - t
+    rand = np.argsort(np.random.default_rng(LM_FAMILIES["seed"]).random(E))
+    reports = {"ebv": placement.placement_report(pairs, perm, E, D),
+               "random": placement.placement_report(pairs, rand, E, D)}
+    log(f"lm_families: phi3 kernel == plain over {plain_pairs} (row, step) pairs (max |logit "
+        f"err| {plain_err:.4f}; {same[:, S0 - 1:].numel() - plain_pairs} pairs with another "
+        f"expert choice); prefill drops at capacity_factor {cfg.moe.capacity_factor}: "
+        f"{sum(prefill_drops)}; placement {reports}")
+
+    # Decode ≡ full forward where nothing drops: the kernel's steps on the
+    # capacity_factor 16 copy, fed the same tokens, against one full forward.
+    dispatch.reset_launches()
+    with RouteSpy() as spy_t:
+        _, forced_logits, _, _, _, caches = lm_steps(nodrop, params, prompt, N, forced=toks)
+    check(dispatch.LAUNCHES.get("decode_attention", 0) == want, "phi3: forced kernel launches")
+    with RouteSpy() as spy_f:
+        full, _ = transformer.forward(nodrop, params, tokens=torch.cat([prompt, toks], dim=1))
+    full = full[:, S0 - 1:]
+    same_f = (spy_t.by_position(cfg.n_layers, B) ==
+              spy_f.by_position(cfg.n_layers, B)).all(-1).all(0).cpu()
+    full_err, full_pairs, full_control, full_steps = logit_check("phi3 decode vs full forward",
+                                                     forced_logits, full, atol,
+                                                     same_f[:, S0 - 1:])
+    del full, forced_logits, plain_logits
+
+    # One decode step with the placement's expert_perm and the experts'
+    # weights moved to their slots (in place, then back): the unpermuted
+    # step's logits, bit for bit.
+    perm_t = torch.from_numpy(perm).to(dev)
+    serve = steps.make_serve_step(cfg)
+    last = dict(token=toks[:, -1:].long(), pos=S0 + N - 1)
+
+    def step():
+        for cache in caches:
+            cache.pos = S0 + N - 1
+        return serve(params, caches, dict(last))[0]
+
+    base = step()
+
+    def move(index):
+        for layer in params.layers:
+            for name in ("w_gate", "w_in", "w_out"):
+                w = getattr(layer.moe, name)
+                moved = torch.empty_like(w)
+                moved[index] = w
+                w.copy_(moved)
+
+    real_ep = moe.moe_ffn_ep
+    move(perm_t)
+    try:
+        moe.moe_ffn_ep = lambda cfg_, p, x, group=None: moe.moe_ffn(cfg_, p, x,
+                                                                   expert_perm=perm_t)
+        permuted = step()
+    finally:
+        moe.moe_ffn_ep = real_ep
+        move(torch.argsort(perm_t))
+    gap = float((permuted.float() - base.float()).abs().max())
+    check(torch.equal(permuted, base), f"phi3: the permuted-expert step differs from the "
+                                       f"unpermuted one by {gap}")
+    check(torch.equal(step(), base), "phi3: the weights did not come back")
+    log(f"lm_families: phi3 decode == full forward (capacity_factor "
+        f"{nodrop.moe.capacity_factor}) over {full_pairs} pairs (max {full_err:.4f}; control "
+        f"{full_control:.2f}); the permuted-expert step == the unpermuted one")
+
+    entries = [attention_entry(
+        "decode_attention.phi3_5_moe", torch.randn((B, cfg.n_heads, cfg.head_dim_), device=dev,
+                                                   generator=torch.Generator(device=dev)
+                                                   .manual_seed(35)).to(torch.bfloat16),
+        caches[0].k, caches[0].v, S0 + N, ((0, S0 + 1), (37, S0 + 5)), want,
+        "phi3_5_moe decode step, layer 0's live cache",
+        "decode_attention in the lm_families phase's phi3_5_moe generate call")]
+    n_params = sum(p.numel() for p in params.parameters())
+    del params, caches
+    torch.cuda.empty_cache()
+    rec = dict(config=cfg.name, n_layers=cfg.n_layers, published_layers=32, params=n_params,
+               batch=B, prompt_len=S0, new_tokens=N, capacity_factor=cfg.moe.capacity_factor,
+               init_s=init_s, **stats, plain_decode_ms_p50=float(np.percentile(plain_step_ms, 50)),
+               launches=launches, logit_atol=atol,
+               max_abs_logit_err_plain=plain_err, plain_pairs_compared=plain_pairs,
+               plain_pairs_other_experts=int(same[:, S0 - 1:].numel() - plain_pairs),
+               plain_control_err=plain_control, plain_err_by_step=plain_steps,
+               max_abs_logit_err_full_forward=full_err, full_pairs_compared=full_pairs,
+               full_err_by_step=full_steps,
+               full_pairs_other_experts=int(same_f[:, S0 - 1:].numel() - full_pairs),
+               full_prompt_positions_other_experts=int((~same_f[:, :S0 - 1]).sum()),
+               full_control_err=full_control, prefill_drops=prefill_drops, prefill_cap=cap,
+               placement=dict(devices=D, experts=E, tokens=int(pairs.shape[0]), s=place_s,
+                              perm=perm.tolist(), **reports),
+               permuted_step_equal=True)
+    return rec, entries
+
+
+def family_mamba2(dev):
+    """mamba2_780m whole: generate launches no kernel; every decode step
+    against the full forward (chunked SSD over prompt and tokens)."""
+    from repro_torch import configs
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import ssm, transformer
+
+    c = MAMBA2
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = configs.get_config(c["config"])
+    B, S0, N = LM_FAMILIES["batch"], c["prompt_len"], LM_FAMILIES["new_tokens"]
+    for S in (S0, S0 + N):  # the chunked SSD's chunk: never the loop of chunk 1
+        check(ssm.pick_chunk(S, cfg.ssm.chunk) > 1, f"mamba2: a length {S} takes chunk 1")
+    atol = LM_FAMILY_ATOL[cfg.name]
+    t = time.perf_counter()
+    params = transformer.init_params(cfg, torch.Generator(device=dev).manual_seed(
+        LM_FAMILIES["seed"]), torch.bfloat16)
+    sync()
+    init_s = time.perf_counter() - t
+    prompt = lm_family_prompt(cfg, B, S0, dev)
+    lm_generate(cfg, params, prompt[:, :64], N=2)
+    dispatch.reset_launches()
+    toks, logits, prefill_ms, step_ms, wall = lm_generate(cfg, params, prompt, N=N)
+    launches = dict(dispatch.LAUNCHES)
+    check(sum(launches.values()) == 0, f"mamba2: the SSM stack launched {launches}")
+    check(logits.shape == (B, N + 1, cfg.vocab) and bool(torch.isfinite(logits).all()),
+          "mamba2: logits not finite or out of shape")
+    stats = family_stats(B, N, prefill_ms, step_ms, wall)
+    full, _ = transformer.forward(cfg, params, tokens=torch.cat([prompt, toks], dim=1))
+    full_err, pairs, control, full_steps = logit_check("mamba2 decode vs full forward", logits,
+                                                       full[:, S0 - 1:], atol)
+    n_params = sum(p.numel() for p in params.parameters())
+    del params, full, logits
+    torch.cuda.empty_cache()
+    # The same weights unrounded (f32 draws of the same generator), the same
+    # tokens: decode against the full forward, where no bf16 rounding hides
+    # a fault.
+    params = transformer.init_params(cfg, torch.Generator(device=dev).manual_seed(
+        LM_FAMILIES["seed"]), torch.float32)
+    _, f32_logits, _, _, _, _ = lm_steps(cfg, params, prompt, N, forced=toks)
+    full, _ = transformer.forward(cfg, params, tokens=torch.cat([prompt, toks], dim=1))
+    f32_err, _, f32_control, f32_steps = logit_check("mamba2 f32 decode vs full forward",
+                                                     f32_logits, full[:, S0 - 1:],
+                                                     MAMBA2_F32_ATOL)
+    log(f"lm_families: mamba2_780m generate: prefill {prefill_ms:.1f} ms (chunked SSD), "
+        f"decode p50 {stats['decode_ms_p50']:.2f} ms; == full forward over {pairs} pairs (max "
+        f"{full_err:.4f}; control {control:.2f}); in f32 max {f32_err:.2e}")
+    del params, full, f32_logits
+    torch.cuda.empty_cache()
+    return dict(config=cfg.name, n_layers=cfg.n_layers, params=n_params, batch=B,
+                prompt_len=S0, new_tokens=N, chunk=ssm.pick_chunk(S0, cfg.ssm.chunk),
+                init_s=init_s, **stats, launches=launches, logit_atol=atol,
+                max_abs_logit_err_full_forward=full_err, full_pairs_compared=pairs,
+                full_control_err=control, full_err_by_step=full_steps,
+                f32_logit_atol=MAMBA2_F32_ATOL, max_abs_logit_err_full_forward_f32=f32_err,
+                f32_control_err=f32_control, f32_err_by_step=f32_steps)
+
+
+def family_seamless(dev):
+    """seamless_m4t_large_v2 whole, with 1,024 seeded random encoder frames
+    (the audio frontend is a stub in both packages): the prefill with the
+    frames, then serve steps given the encoder's output computed once
+    (launches exact: self- and cross-attention); every step against the
+    plain attention fed the same tokens and against the full forward."""
+    from repro_torch import configs
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import transformer
+
+    c = SEAMLESS
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = configs.get_config(c["config"])
+    B, S0, N = LM_FAMILIES["batch"], c["prompt_len"], LM_FAMILIES["new_tokens"]
+    atol = LM_FAMILY_ATOL[cfg.name]
+    gen = torch.Generator(device=dev).manual_seed(LM_FAMILIES["seed"])
+    t = time.perf_counter()
+    params = transformer.init_params(cfg, gen, torch.bfloat16)
+    sync()
+    init_s = time.perf_counter() - t
+    frames = torch.randn((B, c["enc_frames"], cfg.d_model), generator=gen, device=dev).to(
+        torch.bfloat16)
+    prompt = lm_family_prompt(cfg, B, S0, dev)
+    t = time.perf_counter()
+    enc_out = transformer.encode(cfg, params, enc_embeds=frames)
+    sync()
+    encode_s = time.perf_counter() - t
+    enc = dict(enc_embeds=frames, enc_out=enc_out)
+    lm_steps(cfg, params, prompt[:, :4], 2, enc=enc)  # warm-up
+
+    dispatch.reset_launches()
+    toks, logits, prefill_ms, step_ms, wall, _ = lm_steps(cfg, params, prompt, N, enc=enc)
+    launches = dict(dispatch.LAUNCHES)
+    want = 2 * cfg.n_layers * N
+    check(launches.get("decode_attention", 0) == want,
+          f"seamless: decode_attention launched {launches.get('decode_attention', 0)} times, "
+          f"not {want} (self and cross)")
+    check(logits.shape == (B, N + 1, cfg.vocab) and bool(torch.isfinite(logits).all()),
+          "seamless: logits not finite or out of shape")
+    stats = family_stats(B, N, prefill_ms, step_ms, wall)
+    dispatch.reset_launches()
+    _, plain_logits, _, plain_step_ms, _, caches = lm_steps(cfg, params, prompt, N, forced=toks,
+                                                            plain=True, enc=enc)
+    check(dispatch.LAUNCHES.get("decode_attention", 0) == 0, "seamless: the plain run launched")
+    plain_err, pairs, plain_control, plain_steps = logit_check("seamless kernel vs plain", logits,
+                                                  plain_logits, atol)
+    full, _ = transformer.forward(cfg, params, tokens=torch.cat([prompt, toks], dim=1),
+                                  enc_out=enc_out)
+    full_err, _, full_control, full_steps = logit_check("seamless decode vs full forward", logits,
+                                            full[:, S0 - 1:], atol)
+    log(f"lm_families: seamless generate: prefill {prefill_ms:.1f} ms (with the encoder), decode "
+        f"p50 {stats['decode_ms_p50']:.2f} ms, {want} launches; == plain over {pairs} pairs (max "
+        f"{plain_err:.4f}), == full forward (max {full_err:.4f}; controls {plain_control:.2f}, "
+        f"{full_control:.2f})")
+    del full, plain_logits, logits
+    # The kernel entries: layer 0's self-attention cache, and its
+    # cross-attention's fresh K and V over the encoder's output (G = 1).
+    g2 = torch.Generator(device=dev).manual_seed(64)
+    qs = [torch.randn((B, cfg.n_heads, cfg.head_dim_), generator=g2, device=dev).to(
+        torch.bfloat16) for _ in range(2)]
+    cross = params.layers[0].cross
+    Se = enc_out.shape[1]
+    ck = (enc_out @ cross.wk.reshape(cfg.d_model, -1)).reshape(B, Se, cfg.n_kv_heads,
+                                                               cfg.head_dim_)
+    cv = (enc_out @ cross.wv.reshape(cfg.d_model, -1)).reshape(B, Se, cfg.n_kv_heads,
+                                                               cfg.head_dim_)
+    of = "decode_attention in the lm_families phase's seamless serve loop (self and cross)"
+    entries = [
+        attention_entry("decode_attention.seamless_self", qs[0], caches[0].k, caches[0].v,
+                        S0 + N, ((0, S0 + 1), (5, S0 + N - 8)), want,
+                        "seamless_m4t_large_v2 decode step, layer 0's live self-attention cache",
+                        of),
+        attention_entry("decode_attention.seamless_cross", qs[1], ck, cv, Se,
+                        ((0, Se // 2 + 1), (100, Se - 24)), want,
+                        "seamless_m4t_large_v2 decode step, layer 0's cross-attention over the "
+                        "encoder's output (fresh K and V, G = 1)", of),
+    ]
+    n_params = sum(p.numel() for p in params.parameters())
+    del params, caches, enc_out, frames, ck, cv
+    torch.cuda.empty_cache()
+    return dict(config=cfg.name, n_layers=cfg.n_layers, n_enc_layers=cfg.n_enc_layers,
+                params=n_params, batch=B, prompt_len=S0, enc_frames=c["enc_frames"],
+                new_tokens=N, init_s=init_s, encode_s=encode_s, **stats,
+                plain_decode_ms_p50=float(np.percentile(plain_step_ms, 50)), launches=launches,
+                logit_atol=atol, max_abs_logit_err_plain=plain_err, plain_pairs_compared=pairs,
+                plain_control_err=plain_control, plain_err_by_step=plain_steps,
+                max_abs_logit_err_full_forward=full_err, full_control_err=full_control,
+                full_err_by_step=full_steps), entries
+
+
+def measure_wide_attention(dev):
+    """decode_attention's DP = 512 build (head_dim 257-512; no config of
+    either package reaches it) at WIDE_ATTN, bf16, held against the plain
+    version at the whole cache and at key ranges with NaN outside, timed
+    beside its bound and SDPA."""
+    c = WIDE_ATTN
+    q, k, v = attention_inputs(c["B"], c["Hq"], c["Hkv"], c["D"], c["S"], torch.bfloat16, dev,
+                               seed=512)
+    entry = attention_entry("decode_attention.d512", q, k, v, c["S"],
+                            ((0, c["S"] // 2 + 1), (37, c["S"] - 96)), 0,
+                            "the D = 512 build (no config path: head_dim <= 256 everywhere)",
+                            "no path: no config of either package has head_dim > 256")
+    del q, k, v
+    torch.cuda.empty_cache()
+    return entry
 
 
 # -------------------------------------------------------------------- main
@@ -2323,8 +2792,8 @@ def main(argv=None) -> int:
     ap.add_argument("--dist-child", type=Path, default=None,
                     help=argparse.SUPPRESS)  # one rank of the distributed phase's world of 2
     ap.add_argument("--lm-only", action="store_true",
-                    help="run the build and the LM serving phase alone (a quick check of "
-                         "that path; the full run is the script without flags)")
+                    help="run the build and the two LM serving phases alone (a quick check "
+                         "of those paths; the full run is the script without flags)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on the card",
@@ -2360,10 +2829,16 @@ def main(argv=None) -> int:
         e["lm_launches"] = lm["launches"].get(e["name"],
                                               lm["launches"].get(e["name"].split(".")[0], 0))
     kernels += lm_kernels
+    families, family_kernels = phase_lm_families(dev)
+    kernels += family_kernels
+    for e in kernels:  # and the lm_families path's, model by model
+        kernel = e["name"].split(".")[0]
+        e["lm_families_launches"] = {name: rec["launches"].get(kernel, 0)
+                                     for name, rec in families.items() if name != "phase_s"}
     total = time.perf_counter() - t0
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(dict(
-        record, lm=lm, kernels=kernels, total_s=total), indent=1))
+        record, lm=lm, lm_families=families, kernels=kernels, total_s=total), indent=1))
     log(f"all phases passed in {total:.1f} s")
 
     print(smi)
@@ -2374,6 +2849,7 @@ def main(argv=None) -> int:
             "mean_batch", "padding_waste", "supersteps_mean", "cache", "resilience",
             "capture_s")}}))
     print(json.dumps({"lm_serve": lm_line(lm, smi)}))
+    print(json.dumps({"lm_families": families_line(families, smi)}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                               "kind": torch.cuda.get_device_name(0),
@@ -2389,6 +2865,17 @@ def lm_line(lm, smi):
             "phase_s")
     return dict({k: lm[k] for k in keys}, launches=lm["launches"].get("decode_attention", 0),
                 card=smi)
+
+
+def families_line(families, smi):
+    """The {"lm_families": ...} stdout line: a model's speed, launches and
+    its largest logit errors against its limit."""
+    keys = ("n_layers", "prefill_s", "decode_ms_p50", "decode_ms_p99", "tokens_per_s",
+            "peak_gb", "logit_atol", "max_abs_logit_err_plain", "max_abs_logit_err_full_forward")
+    out = {name: dict({k: rec[k] for k in keys if k in rec},
+                      launches=rec["launches"].get("decode_attention", 0))
+           for name, rec in families.items() if name != "phase_s"}
+    return dict(out, phase_s=families["phase_s"], card=smi)
 
 
 if __name__ == "__main__":

@@ -121,9 +121,13 @@ def _leaf_tensor(a, device) -> torch.Tensor:
 
 def lm_params_from_numpy(cfg, params: dict, *, device=None):
     """The reference's LM parameters (the pytree of `repro.models.
-    transformer.init_params` as numpy arrays; `groups` stacked along the
-    n_groups axis) → the port's `DecoderLM` on `device`, in the leaves'
-    dtype. Layer l is group l // len(cfg.group), slot l % len(cfg.group)."""
+    transformer.init_params` as numpy arrays; `groups` and `enc_groups`
+    stacked along their group axis) → the port's `LM` on `device`, each
+    leaf in its own dtype (the MoE router and the SSM's dt_bias, A_log and
+    D are f32 in any model), bit for bit. Layer l is group
+    l // len(cfg.group), slot l % len(cfg.group); encoder layer l is
+    `enc_groups` group l. Every leaf of a layer's slot is carried across,
+    and a leaf the port's layer does not hold raises."""
     from repro_torch.models.transformer import empty_params
 
     dev = resolve_device(device)
@@ -131,23 +135,37 @@ def lm_params_from_numpy(cfg, params: dict, *, device=None):
     out = empty_params(cfg, device="meta", dtype=embed.dtype)
 
     def put(module, name, leaf):
+        owner, _, attr = name.rpartition(".")
+        owner = module.get_submodule(owner)
         t = _leaf_tensor(leaf, dev)
-        want = tuple(getattr(module, name).shape)
+        want = tuple(getattr(owner, attr).shape)
         if tuple(t.shape) != want:
             raise ValueError(f"parameter {name} has shape {tuple(t.shape)}, expected {want}")
-        setattr(module, name, torch.nn.Parameter(t, requires_grad=False))
+        setattr(owner, attr, torch.nn.Parameter(t, requires_grad=False))
 
-    put(out, "embed", params["embed"])
-    put(out, "final_norm", params["final_norm"])
-    if not cfg.tie_embeddings:
-        put(out, "unembed", params["unembed"])
+    def leaves(tree, prefix=""):
+        for key, val in tree.items():
+            if isinstance(val, dict):
+                yield from leaves(val, f"{prefix}{key}.")
+            else:
+                yield f"{prefix}{key}", val
+
+    def put_layer(mod, slot, g):
+        names = {name for name, _ in mod.named_parameters()}
+        got = dict(leaves(slot))
+        if set(got) != names:
+            raise ValueError(f"layer leaves {sorted(set(got) ^ names)} differ between the "
+                             f"packages")
+        for name, leaf in got.items():
+            put(mod, name, np.asarray(leaf)[g])
+
+    for name in ("embed", "final_norm") + (() if cfg.tie_embeddings else ("unembed",)):
+        put(out, name, params[name])
     n = len(cfg.group)
     for layer, mod in enumerate(out.layers):
-        grp = params["groups"][f"layer_{layer % n}"]
-        g = layer // n
-        for name in ("pre_norm", "mlp_norm"):
-            put(mod, name, np.asarray(grp[name])[g])
-        for part, sub in (("attn", mod.attn), ("mlp", mod.mlp)):
-            for name, _ in list(sub.named_parameters()):
-                put(sub, name, np.asarray(grp[part][name])[g])
+        put_layer(mod, params["groups"][f"layer_{layer % n}"], layer // n)
+    if cfg.is_encdec:
+        put(out, "enc_final_norm", params["enc_final_norm"])
+        for layer, mod in enumerate(out.enc_layers):
+            put_layer(mod, params["enc_groups"]["layer_0"], layer)
     return out

@@ -6,7 +6,7 @@
 // [start, end) of k and v [B, S_max, Hkv, D] read in place (a KV cache
 // whose rows past `end` are not written yet), with q, k, v all f32, all
 // bf16, or q f32 over a bf16 k and v (an f32 model over a bf16 cache);
-// Hq = Hkv * G, 1 <= D <= 256; output out [B, Hq, D] in q's type.
+// Hq = Hkv * G, 1 <= D <= 512; output out [B, Hq, D] in q's type.
 // Query head h*G + g attends over kv head h, keys j in [start, end):
 //   s_j = q . k_j * scale   (scale = 1/sqrt(D)),
 //   s_j = softcap * tanh(s_j / softcap)   when softcap != 0,
@@ -32,11 +32,18 @@
 //     by 16 bytes, so the score phase's column reads (8 rows a quarter-warp)
 //     and the P·V phase's row reads are free of bank conflicts. A CTA is 256
 //     threads over 64-key tiles, or 128 over 32-key tiles for rows of 512
-//     bytes or more (f32 at D >= 128, bf16 at D = 256).
-//   * No warp reduction per key. Score phase: lane j of warp w dots key
-//     32·(w/4) + j of the tile with the query rows (held in shared memory
-//     as f32, read as broadcasts) over quarter w%4 of D; the quarters are
-//     added through shared memory. Softmax phase: one warp a query row
+//     bytes or more (f32 at D >= 128, bf16 at D >= 256).
+//   * Rows of 1-2 KB (the DP = 512 build): a stage of 32 keys is 66 KB in
+//     bf16 and 132 KB in f32, and the ring needs two. The launcher takes
+//     the most keys a stage (32, else 16) whose CTA fits the shared memory
+//     the card gives a block: the device's opt-in limit less the kernel's
+//     static shared memory (cudaFuncGetAttributes), read once a build. On
+//     an H100 (227 KB) that is 32 keys in bf16 (~155 KB) and 16 in f32.
+//   * No warp reduction per key. Score phase: the THREADS threads split as
+//     TK keys × NPART parts of D (NPART = THREADS / TK: 4, or 8 at 16-key
+//     tiles); a thread dots its key of the tile with the query rows (held
+//     in shared memory as f32, read as broadcasts) over its part of D; the
+//     parts are added through shared memory. Softmax phase: one warp a query row
 //     takes the tile's max and sum (two warp reductions a tile, not a key).
 //     P·V phase: a thread owns one 16-byte column chunk of D and every
 //     KP-th key of the tile, and adds p_j v_j into GC·(16/sizeof(T)) f32
@@ -51,7 +58,8 @@
 //     q's type, as the TPU kernel casts each input to f32 on its own.
 //   * Products are written as __fmaf_rn (the build's -fmad=false forbids
 //     only the compiler's own contraction).
-//   * Any head_dim: the kernel is built for DP in {32, 64, 128, 256}; a
+//   * Any head_dim up to 512: the kernel is built for DP in {32, 64, 128,
+//     256, 512}; a
 //     head_dim D < DP runs on the next one up. Its rows sit in the padded
 //     tile with zero columns D..DP (in q and k they add nothing to a dot
 //     product; those of P·V are not stored), and scale is 1/sqrt(D) of
@@ -68,19 +76,24 @@
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kQuarters = 4;        // the score phase splits D in four
 constexpr int kMergeThreads = 128;
 constexpr int kRingBytes = 72 * 1024;  // the ring a CTA aims at
 constexpr float kNegInf = -3.0e38f;    // finite: exp(kNegInf - m) is 0, never NaN
 
-// A CTA of THREADS threads takes tiles of TK keys: one a lane of each
-// group of four warps in the score phase. Rows of 512 bytes or more take
-// 128 threads and 32 keys, so that two stages of the ring fit.
+// The keys a tile of a build takes unless the launcher picks fewer (rows
+// of 1 KB or more, see pick_tk): 64 for rows under 512 bytes, else 32.
 template <typename T, int D>
+constexpr int default_tk() { return D * (int)sizeof(T) >= 512 ? 32 : 64; }
+
+// A CTA of THREADS threads takes tiles of TK keys; in the score phase the
+// threads split as TK keys × NPART parts of D. Rows of 512 bytes or more
+// take 128 threads, so that two stages of the ring fit.
+template <typename T, int D, int TK_>
 struct Shape {
   static constexpr int THREADS = D * (int)sizeof(T) >= 512 ? 128 : 256;
   static constexpr int WARPS = THREADS / 32;
-  static constexpr int TK = 32 * (WARPS / kQuarters);
+  static constexpr int TK = TK_;
+  static constexpr int NPART = THREADS / TK;       // parts of D in the score phase
   static constexpr int CE = 16 / (int)sizeof(T);   // elements a 16-byte chunk
   static constexpr int NCH = D / CE;               // chunks a row
   static constexpr int ROWB = D * (int)sizeof(T) + 16;  // padded row in shared memory
@@ -88,21 +101,22 @@ struct Shape {
   static constexpr int STAGEB = 2 * TILEB;  // K tile, then V tile
   static constexpr int NSTAGE =
       kRingBytes / STAGEB < 2 ? 2 : (kRingBytes / STAGEB > 6 ? 6 : kRingBytes / STAGEB);
-  static constexpr int WCH = NCH / kQuarters;  // chunks a warp dots in the score phase
+  static constexpr int WCH = NCH / NPART;  // chunks a thread dots in the score phase
   static constexpr int KP = THREADS / NCH;  // key phases of the P·V phase
   static constexpr int KPT = TK / KP;        // keys a thread adds a tile
-  static_assert(NCH % kQuarters == 0 && THREADS % NCH == 0 && TK % KP == 0, "shape");
+  static_assert(THREADS % TK == 0 && (TK % 32 == 0 || TK < 32) && NCH % NPART == 0 &&
+                THREADS % NCH == 0 && TK % KP == 0, "shape");
 };
 
-template <typename T, int D, int GC>
+template <typename T, int D, int GC, int TK>
 struct Smem {
-  using Sh = Shape<T, D>;
+  using Sh = Shape<T, D, TK>;
   static constexpr int RING = Sh::NSTAGE * Sh::STAGEB;
   static constexpr int RED = Sh::KP * GC * D * 4;  // the end's partial accumulators (reuse the ring)
   static constexpr int BIG = RING > RED ? RING : RED;
   static constexpr int BARS = (8 * Sh::NSTAGE + 15) / 16 * 16;  // keeps q_s 16-byte aligned
   static constexpr int BYTES =
-      BIG + BARS + 4 * (GC * D + kQuarters * GC * Sh::TK + GC * Sh::TK + 3 * GC);
+      BIG + BARS + 4 * (GC * D + Sh::NPART * GC * Sh::TK + GC * Sh::TK + 3 * GC);
 };
 
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
@@ -199,16 +213,16 @@ __device__ __forceinline__ float warp_max(float x) {
 // QT is q's and out's type, T the cache's; k and v point at key `start` of
 // batch row 0, and a batch row is `bstride` elements (S_max·Hkv·dt); S is
 // the range's length.
-template <typename QT, typename T, int D, int GC>
-__global__ void __launch_bounds__(Shape<T, D>::THREADS)
+template <typename QT, typename T, int D, int GC, int TK>
+__global__ void __launch_bounds__(Shape<T, D, TK>::THREADS)
     decode_split_kernel(const QT* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, QT* __restrict__ out, float* __restrict__ ws,
                         int S, long long bstride, int Hkv, int G, int chunk, float scale,
                         float softcap, int dt, int bulk) {
-  using Sh = Shape<T, D>;
-  using Sm = Smem<T, D, GC>;
+  using Sh = Shape<T, D, TK>;
+  using Sm = Smem<T, D, GC, TK>;
   constexpr int CE = Sh::CE, NCH = Sh::NCH, ROWB = Sh::ROWB, TILEB = Sh::TILEB;
-  constexpr int STAGEB = Sh::STAGEB, NSTAGE = Sh::NSTAGE, KP = Sh::KP;
+  constexpr int STAGEB = Sh::STAGEB, NSTAGE = Sh::NSTAGE, KP = Sh::KP, NPART = Sh::NPART;
   constexpr int kThreads = Sh::THREADS, kWarps = Sh::WARPS, kTK = Sh::TK;
   constexpr int GW = (GC + kWarps - 1) / kWarps;  // query rows a warp owns in the softmax
   extern __shared__ __align__(16) unsigned char smem[];
@@ -216,8 +230,8 @@ __global__ void __launch_bounds__(Shape<T, D>::THREADS)
   float* red = reinterpret_cast<float*>(smem);
   uint64_t* bar = reinterpret_cast<uint64_t*>(smem + Sm::BIG);  // [NSTAGE] a slot's copies
   float* q_s = reinterpret_cast<float*>(smem + Sm::BIG + Sm::BARS);  // [GC][D]
-  float* s_part = q_s + GC * D;                            // [kQuarters][GC][kTK]
-  float* p_s = s_part + kQuarters * GC * kTK;              // [GC][kTK]
+  float* s_part = q_s + GC * D;                            // [NPART][GC][kTK]
+  float* p_s = s_part + NPART * GC * kTK;                  // [GC][kTK]
   float* a_s = p_s + GC * kTK;                             // [GC] this tile's rescale
   float* ml_s = a_s + GC;                                  // [2][GC] final m, l
 
@@ -305,17 +319,19 @@ __global__ void __launch_bounds__(Shape<T, D>::THREADS)
     const unsigned char* Vs = Ks + TILEB;
     const int key0 = k0 + i * kTK;
 
-    // Scores: warp w takes keys 32·(w / 4) + lane over quarter w % 4 of D.
+    // Scores: a thread takes one key of the tile over one part of D (tiles of
+    // 32 keys or more: warp w takes keys 32·(w / NPART) + lane over part
+    // w % NPART; 16-key tiles: thread t takes key t % 16 over part t / 16).
     {
-      const int quarter = warp % kQuarters;
-      const int key = 32 * (warp / kQuarters) + lane;
+      const int part = kTK >= 32 ? warp % NPART : t / kTK;
+      const int key = kTK >= 32 ? 32 * (warp / NPART) + lane : t % kTK;
       float s0[GC], s1[GC];
 #pragma unroll
       for (int g = 0; g < GC; ++g) s0[g] = s1[g] = 0.0f;
       const unsigned char* krow = Ks + key * ROWB;
 #pragma unroll
       for (int c = 0; c < Sh::WCH; ++c) {
-        const int cc = quarter * Sh::WCH + c;
+        const int cc = part * Sh::WCH + c;
         float kf[CE];
         chunk_to_f32<T>(*reinterpret_cast<const uint4*>(krow + cc * 16), kf);
 #pragma unroll
@@ -333,7 +349,7 @@ __global__ void __launch_bounds__(Shape<T, D>::THREADS)
       }
 #pragma unroll
       for (int g = 0; g < GC; ++g)
-        s_part[(quarter * GC + g) * kTK + key] = __fadd_rn(s0[g], s1[g]);
+        s_part[(part * GC + g) * kTK + key] = __fadd_rn(s0[g], s1[g]);
     }
     __syncthreads();
 
@@ -343,17 +359,17 @@ __global__ void __launch_bounds__(Shape<T, D>::THREADS)
     for (int r = 0; r < GW; ++r) {
       const int g = warp + kWarps * r;
       if (g < GC) {
-        constexpr int KL = kTK / 32;
+        constexpr int KL = (kTK + 31) / 32;
         float s[KL];
         float mx = kNegInf;
 #pragma unroll
         for (int i = 0; i < KL; ++i) {
           const int j = lane + 32 * i;
           s[i] = kNegInf;
-          if (key0 + j < kend) {
+          if (j < kTK && key0 + j < kend) {
             float x = s_part[g * kTK + j];
 #pragma unroll
-            for (int qq = 1; qq < kQuarters; ++qq) x = __fadd_rn(x, s_part[(qq * GC + g) * kTK + j]);
+            for (int qq = 1; qq < NPART; ++qq) x = __fadd_rn(x, s_part[(qq * GC + g) * kTK + j]);
             x = __fmul_rn(x, scale);
             if (softcap != 0.0f) x = __fmul_rn(softcap, tanhf(__fdiv_rn(x, softcap)));
             s[i] = x;
@@ -366,7 +382,7 @@ __global__ void __launch_bounds__(Shape<T, D>::THREADS)
 #pragma unroll
         for (int i = 0; i < KL; ++i) {
           const float pj = expf(__fsub_rn(s[i], m_new));
-          p_s[g * kTK + lane + 32 * i] = pj;
+          if (lane + 32 * i < kTK) p_s[g * kTK + lane + 32 * i] = pj;
           sum = __fadd_rn(sum, pj);
         }
         l_r[r] = __fadd_rn(__fmul_rn(l_r[r], alpha), warp_sum(sum));
@@ -483,41 +499,68 @@ __global__ void __launch_bounds__(kMergeThreads)
 // sizes the workspace through decode_attn_workspace below).
 int group_rows(int G) { return G <= 1 ? 1 : G <= 2 ? 2 : G <= 4 ? 4 : 8; }
 
-template <typename QT, typename T, int D, int GC>
+template <typename QT, typename T, int D, int GC, int TK>
 cudaError_t launch_split(const void* q, const void* k, const void* v, void* out, float* ws,
                          int rows, int S, long long bstride, int Hkv, int G, int chunk,
                          int nsplit, float scale, float softcap, int dt, int bulk,
                          cudaStream_t stream) {
-  auto kern = decode_split_kernel<QT, T, D, GC>;
-  constexpr int bytes = Smem<T, D, GC>::BYTES;
+  auto kern = decode_split_kernel<QT, T, D, GC, TK>;
+  constexpr int bytes = Smem<T, D, GC, TK>::BYTES;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
-  kern<<<dim3(rows, nsplit), Shape<T, D>::THREADS, bytes, stream>>>(
+  kern<<<dim3(rows, nsplit), Shape<T, D, TK>::THREADS, bytes, stream>>>(
       static_cast<const QT*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<QT*>(out), ws, S, bstride, Hkv, G, chunk, scale, softcap, dt, bulk);
   return cudaGetLastError();
 }
 
-template <typename QT, typename T, int D>
-cudaError_t launch_d(const void* q, const void* k, const void* v, void* out, float* ws, int B,
-                     int S, long long bstride, int Hkv, int G, int nsplit, float scale,
-                     float softcap, int dt, cudaStream_t s) {
+// The shared memory a block of `kern` may take on this device: the opt-in
+// limit less the kernel's static shared memory (-1 if a query fails).
+template <typename K>
+int smem_budget(K kern) {
+  int dev = 0, optin = 0;
+  cudaFuncAttributes attr;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) !=
+          cudaSuccess ||
+      cudaFuncGetAttributes(&attr, kern) != cudaSuccess)
+    return -1;
+  return optin - (int)attr.sharedSizeBytes;
+}
+
+// Whether a CTA of this build fits the shared memory a block may take; the
+// budget is read once a build (the first call's device).
+template <typename QT, typename T, int D, int GC, int TK>
+bool fits() {
+  static const int budget = smem_budget(decode_split_kernel<QT, T, D, GC, TK>);
+  return Smem<T, D, GC, TK>::BYTES <= budget;
+}
+
+// Keys a stage for rows of 1-2 KB (the DP = 512 build): the most of 32 and
+// 16 whose CTA fits (0: neither does).
+template <typename QT, typename T, int D, int GC>
+int pick_tk() {
+  return fits<QT, T, D, GC, 32>() ? 32 : fits<QT, T, D, GC, 16>() ? 16 : 0;
+}
+
+template <typename QT, typename T, int D, int TK>
+cudaError_t launch_dk(const void* q, const void* k, const void* v, void* out, float* ws, int B,
+                      int S, long long bstride, int Hkv, int G, int GC, int nsplit, float scale,
+                      float softcap, int dt, cudaStream_t s) {
   const int bulk = dt * (int)sizeof(T) % 16 == 0 && reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(v) % 16 == 0;
-  const int GC = group_rows(G);
   const int rows = B * Hkv * ((G + GC - 1) / GC);
   // Whole tiles a split; the last split takes what is left.
-  constexpr int TK = Shape<T, D>::TK;
   const int tiles = (S + TK - 1) / TK;
   const int per = (tiles + nsplit - 1) / nsplit;
   const int chunk = per * TK;
   nsplit = (tiles + per - 1) / per;
   cudaError_t err;
   switch (GC) {
-    case 1: err = launch_split<QT, T, D, 1>(q, k, v, out, ws, rows, S, bstride, Hkv, G, chunk, nsplit, scale, softcap, dt, bulk, s); break;
-    case 2: err = launch_split<QT, T, D, 2>(q, k, v, out, ws, rows, S, bstride, Hkv, G, chunk, nsplit, scale, softcap, dt, bulk, s); break;
-    case 4: err = launch_split<QT, T, D, 4>(q, k, v, out, ws, rows, S, bstride, Hkv, G, chunk, nsplit, scale, softcap, dt, bulk, s); break;
-    case 8: err = launch_split<QT, T, D, 8>(q, k, v, out, ws, rows, S, bstride, Hkv, G, chunk, nsplit, scale, softcap, dt, bulk, s); break;
+    case 1: err = launch_split<QT, T, D, 1, TK>(q, k, v, out, ws, rows, S, bstride, Hkv, G, chunk, nsplit, scale, softcap, dt, bulk, s); break;
+    case 2: err = launch_split<QT, T, D, 2, TK>(q, k, v, out, ws, rows, S, bstride, Hkv, G, chunk, nsplit, scale, softcap, dt, bulk, s); break;
+    case 4: err = launch_split<QT, T, D, 4, TK>(q, k, v, out, ws, rows, S, bstride, Hkv, G, chunk, nsplit, scale, softcap, dt, bulk, s); break;
+    case 8: err = launch_split<QT, T, D, 8, TK>(q, k, v, out, ws, rows, S, bstride, Hkv, G, chunk, nsplit, scale, softcap, dt, bulk, s); break;
     default: return cudaErrorInvalidValue;
   }
   if (err != cudaSuccess || nsplit == 1) return err;
@@ -527,9 +570,36 @@ cudaError_t launch_d(const void* q, const void* k, const void* v, void* out, flo
   return cudaGetLastError();
 }
 
+template <typename QT, typename T, int D>
+cudaError_t launch_d(const void* q, const void* k, const void* v, void* out, float* ws, int B,
+                     int S, long long bstride, int Hkv, int G, int nsplit, float scale,
+                     float softcap, int dt, cudaStream_t s) {
+  const int GC = group_rows(G);
+  if constexpr (D <= 256) {
+    return launch_dk<QT, T, D, default_tk<T, D>()>(q, k, v, out, ws, B, S, bstride, Hkv, G, GC,
+                                                   nsplit, scale, softcap, dt, s);
+  } else {
+    int tk = 0;
+    switch (GC) {
+      case 1: tk = pick_tk<QT, T, D, 1>(); break;
+      case 2: tk = pick_tk<QT, T, D, 2>(); break;
+      case 4: tk = pick_tk<QT, T, D, 4>(); break;
+      case 8: tk = pick_tk<QT, T, D, 8>(); break;
+    }
+    if (tk == 32)
+      return launch_dk<QT, T, D, 32>(q, k, v, out, ws, B, S, bstride, Hkv, G, GC, nsplit, scale,
+                                     softcap, dt, s);
+    if (tk == 16)
+      return launch_dk<QT, T, D, 16>(q, k, v, out, ws, B, S, bstride, Hkv, G, GC, nsplit, scale,
+                                     softcap, dt, s);
+    return cudaErrorInvalidValue;
+  }
+}
+
 // The width a head_dim D runs at: the least built width >= D (0: none).
 int padded_dim(int D) {
-  return D < 1 ? 0 : D <= 32 ? 32 : D <= 64 ? 64 : D <= 128 ? 128 : D <= 256 ? 256 : 0;
+  return D < 1 ? 0 : D <= 32 ? 32 : D <= 64 ? 64 : D <= 128 ? 128 : D <= 256 ? 256
+       : D <= 512 ? 512 : 0;
 }
 
 template <typename QT, typename T>
@@ -545,6 +615,8 @@ cudaError_t launch_t(const void* q, const void* k, const void* v, void* out, flo
       return launch_d<QT, T, 128>(q, k, v, out, ws, B, S, bstride, Hkv, G, nsplit, scale, softcap, D, s);
     case 256:
       return launch_d<QT, T, 256>(q, k, v, out, ws, B, S, bstride, Hkv, G, nsplit, scale, softcap, D, s);
+    case 512:
+      return launch_d<QT, T, 512>(q, k, v, out, ws, B, S, bstride, Hkv, G, nsplit, scale, softcap, D, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -562,7 +634,7 @@ long long decode_attn_workspace(int B, int Hkv, int G, int D, int nsplit) {
 
 // k and v are [B, s_max, Hkv, D]; the keys [start, end) are read.
 // dtype: 0 = all f32, 1 = all bf16, 2 = q and out f32 over bf16 k and v.
-// 1 <= D <= 256; 1 <= nsplit <= 1024 (fewer are used when the range has
+// 1 <= D <= 512; 1 <= nsplit <= 1024 (fewer are used when the range has
 // fewer tiles); `ws` holds at least decode_attn_workspace(...) floats.
 // Returns cudaGetLastError of the launches.
 int decode_attn_launch(const void* q, const void* k, const void* v, void* out, void* ws,

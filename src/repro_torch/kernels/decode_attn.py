@@ -14,8 +14,9 @@ softmax and the weighted sum of v are taken in f32, and the result
 [B, Hq, D] is cast to q's dtype.
 
 Dispatch: a CPU tensor runs the plain version; a CUDA tensor launches the
-kernel (head_dim 1 to 256: a width outside HEAD_DIMS runs on the next one
-up, its rows zero-padded in shared memory), and anything else raises. The kernel
+kernel (head_dim 1 to 512: a width outside HEAD_DIMS runs on the next one
+up, its rows zero-padded in shared memory; above 512 it raises a
+ValueError that names the limit), and anything else raises. The kernel
 splits S across CTAs (`split_count`) and merges the splits' partial states
 in a second launch on the same stream; each call counts once in `LAUNCHES`
 as "decode_attention".
@@ -38,7 +39,7 @@ from repro_torch.kernels.dispatch import (
 # (q's dtype, k's and v's dtype) → the C entry's dtype code.
 DTYPE_CODES = {(torch.float32, torch.float32): 0, (torch.bfloat16, torch.bfloat16): 1,
                (torch.float32, torch.bfloat16): 2}
-HEAD_DIMS = (32, 64, 128, 256)  # the CUDA kernel's builds: 16-byte chunks, four warps a row
+HEAD_DIMS = (32, 64, 128, 256, 512)  # the CUDA kernel's builds: 16-byte chunks, four warps a row
 SPLIT_KEYS = 1024  # a split streams at most this many keys ...
 WAVE_CTAS = 2 * 3  # ... and the grid fills at least two waves of three CTAs an SM
 MAX_SPLITS = 1024
@@ -53,10 +54,13 @@ def padded_dim(D: int) -> int:
 
 
 def tile_keys(D: int, dtype: torch.dtype) -> int:
-    """Keys a tile of the kernel's ring (`Shape<T, D>::TK` in the source, at
-    the padded width): rows of 512 bytes or more take 32-key tiles, shorter
-    rows 64."""
-    return 32 if padded_dim(D) * torch.finfo(dtype).bits // 8 >= 512 else 64
+    """Keys a tile of the kernel's ring (`Shape<T, D, TK>::TK` in the
+    source, at the padded width): rows under 512 bytes take 64-key tiles,
+    longer rows 32, and rows of 2 KB (f32 at 512) 16: the most keys a stage
+    whose CTA fits the 227 KB an H100 gives a block, which the kernel reads
+    from the card (`pick_tk`)."""
+    row = padded_dim(D) * torch.finfo(dtype).bits // 8
+    return 64 if row < 512 else 32 if row < 2048 else 16
 
 
 def split_count(B: int, S: int, Hkv: int, G: int, sms: int, tile: int = 64) -> int:
@@ -117,7 +121,7 @@ def decode_attention(q, k, v, *, softcap: float = 0.0, start: int = 0, end=None)
         return decode_attention_plain(q, k[:, start:end], v[:, start:end], softcap=softcap)
     if dev.type != "cuda":
         raise ValueError(f"decode_attention runs on CPU or CUDA tensors, got {dev}")
-    padded_dim(D)  # raises above 256
+    padded_dim(D)  # raises above 512
     G = Hq // Hkv
     nsplit = split_count(B, end - start, Hkv, G, _sm_count(dev), tile_keys(D, k.dtype))
     workspace = c_function("decode_attn", "decode_attn_workspace", [ctypes.c_int] * 5,

@@ -7,9 +7,12 @@ greedy decode over per-layer KV caches. It runs on the CUDA card unless
 
 The flags are the reference's, plus `--device`. As there, the parameters
 are f32 from a seeded random init and the caches bf16, so each decode step
-attends with an f32 query over a bf16 cache. The dense decoder family
-runs (the presets, and `--arch` of a dense config's reduced form); other
-families raise NotImplementedError.
+attends with an f32 query over a bf16 cache. `--arch` takes the reduced
+form of every config of the registry: the dense decoders, the MoE
+(phi3_5_moe, kimi_k2), the SSM (mamba2_780m), the hybrid
+(jamba_1_5_large) and the encoder-decoder (seamless_m4t_large_v2).
+`generate`, as the reference's, passes no encoder input: seamless's cross
+layers then attend over the decoder's own tokens (`models.transformer`).
 """
 from __future__ import annotations
 

@@ -1,9 +1,10 @@
 """Transformer layer primitives (port of `repro.models.layers`).
 
-Every attention variant of the dense decoders: GQA, sliding window
+Every attention variant of the assigned architectures: GQA, sliding window
 (gemma2's local layers), attention and logit soft-capping, QK-norm
 (qwen3), QKV bias (qwen2), RoPE and M-RoPE (qwen2-vl), and the `kv_x`
-branch (attention over another sequence's keys). Sums and softmax in f32;
+branch (cross-attention over another sequence's keys: seamless's decoder
+over the encoder's output; no RoPE, no mask). Sums and softmax in f32;
 the parameters' dtype (f32 or bf16) everywhere else, as in the reference.
 
 The parameters are `nn.Module`s in the reference's einsum layouts —
@@ -20,6 +21,11 @@ read in place. A longer call (prefill) attends with the reference's masked
 einsum over the keys written so far. The reference masks the whole
 max_seq cache instead; a masked key's weight, exp(NEG_INF - m), is exactly
 0 in f32, so both compute one function up to the order of the sums.
+
+A one-token call with `kv_x` (decode-time cross-attention) also attends
+through `kernels.ops.decode_attention`, over all the source's keys
+[0, Se) of the K and V this call computes (a fresh contiguous
+[B, Se, Hkv, hd] pair, no cache); longer calls keep the einsum.
 """
 from __future__ import annotations
 
@@ -46,9 +52,10 @@ _PLAIN_DECODE = False
 
 @contextlib.contextmanager
 def plain_decode_attention():
-    """Test hook: inside this context the decode step attends through the
-    plain PyTorch version of `decode_attention` (on the card too), over the
-    same keys; it counts no launch."""
+    """Test hook: inside this context the decode step (self- and
+    cross-attention) attends through the plain PyTorch version of
+    `decode_attention` (on the card too), over the same keys; it counts no
+    launch."""
     global _PLAIN_DECODE
     before, _PLAIN_DECODE = _PLAIN_DECODE, True
     try:
@@ -191,9 +198,14 @@ def attention(
         cache.v[:, pos:end] = v.to(cache.v.dtype)
         cache.pos = end
         if S == 1:
-            return _decode(cfg, q[:, 0], cache, window, end).reshape(B, 1, H * hd) @ wo, cache
+            start = max(0, end - window) if window is not None else 0
+            out = _one_query(cfg, q[:, 0], cache.k, cache.v, start, end)
+            return out.reshape(B, 1, H * hd) @ wo, cache
         k, v = cache.k[:, :end], cache.v[:, :end]
         mask = _attn_mask(S, end, causal=True, window=window, offset=pos, device=x.device)
+    elif kv_x is not None and S == 1:  # decode-time cross-attention: keys [0, Se)
+        out = _one_query(cfg, q[:, 0], k, v, 0, k.shape[1])
+        return out.reshape(B, 1, H * hd) @ wo, None
     else:
         mask = _attn_mask(S, k.shape[1], causal=causal and kv_x is None, window=window,
                           device=x.device)
@@ -210,17 +222,16 @@ def attention(
     return out @ wo, cache
 
 
-def _decode(cfg: ModelConfig, q: torch.Tensor, cache: KVCache, window: Optional[int],
-            end: int) -> torch.Tensor:
-    """One query token [B, H, hd] over the cache's keys [start, end), where
-    the causal mask and the window leave them: [B, H, hd] in q's dtype."""
-    start = max(0, end - window) if window is not None else 0
+def _one_query(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               start: int, end: int) -> torch.Tensor:
+    """One query token [B, H, hd] over keys [start, end) of k, v [B, S, Hkv,
+    hd] (a cache, or a cross-attention source), read in place: [B, H, hd]
+    in q's dtype."""
     q = q.contiguous()
     if _PLAIN_DECODE:
-        return _attn.decode_attention_plain(q, cache.k[:, start:end], cache.v[:, start:end],
+        return _attn.decode_attention_plain(q, k[:, start:end], v[:, start:end],
                                             softcap=cfg.attn_softcap)
-    return ops.decode_attention(q, cache.k, cache.v, softcap=cfg.attn_softcap, start=start,
-                                end=end)
+    return ops.decode_attention(q, k, v, softcap=cfg.attn_softcap, start=start, end=end)
 
 
 def mlp(cfg: ModelConfig, p: MLP, x: torch.Tensor) -> torch.Tensor:

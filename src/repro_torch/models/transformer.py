@@ -1,16 +1,27 @@
-"""Model assembly for the decoder-only dense stack (port of
+"""Model assembly: decoder-only, hybrid and encoder-decoder stacks (port of
 `repro.models.transformer`).
 
 The reference scans `cfg.group` n_groups times over parameters stacked
 along a group axis; the port runs a plain loop over its `n_layers` layers,
 layer l taking the spec `cfg.group[l % len(cfg.group)]` (gemma2's
-local/global alternation). `interop.lm_params_from_numpy` unstacks the
-reference's parameters into that order. The reference's sharding
-constraints (`pspec.constrain`) have no counterpart here.
+local/global alternation, jamba's period-8 block of one attention and
+seven SSM mixers with a MoE MLP every other layer).
+`interop.lm_params_from_numpy` unstacks the reference's parameters into
+that order. The reference's sharding constraints (`pspec.constrain`) have
+no counterpart here.
 
-This slice runs stacks whose layers are all attention + dense MLP. A spec
-with an SSM mixer, a MoE MLP or cross-attention, and an encoder-decoder
-config, raise NotImplementedError naming the slice that brings them.
+A layer (`Layer`) is a pre-norm mixer (`attn` or `ssm`), then for an
+encoder-decoder's decoder a cross-attention (`cross_norm`, `cross`), then
+a `dense` or `moe` MLP (`mlp_norm`; mamba2's `none` has neither). The
+encoder (`enc_layers`: attention + dense MLP, not causal, then
+`enc_final_norm`) runs inside `forward` when it is given `enc_tokens` or
+`enc_embeds` and no `enc_out`; `encode` is that block alone, so that a
+serving loop can compute `enc_out` once. With no encoder input at all the
+cross layers run `attention(kv_x=None)`: an unmasked self-attention over
+the call's own tokens, with RoPE, as the reference computes it.
+
+Caches (`init_caches`): one a layer, a `layers.KVCache` for an attention
+mixer and an `ssm.SSMCache` for an SSM mixer, written in place.
 """
 from __future__ import annotations
 
@@ -20,112 +31,146 @@ import torch
 from torch import nn
 
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
+from repro_torch.models import ssm as SSM
 from repro_torch.models.config import LayerSpec, ModelConfig
 
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError unless every layer of `cfg` is attention +
-    dense MLP in a decoder-only stack."""
-    for spec in cfg.group:
-        if spec.kind == "ssm":
-            raise NotImplementedError(
-                f"{cfg.name}: SSM layers (models/ssm.py) come in a later slice of the port")
-        if spec.mlp == "moe":
-            raise NotImplementedError(
-                f"{cfg.name}: MoE layers (models/moe.py with core/placement.py) come in a "
-                f"later slice of the port")
-        if spec.cross_attn or cfg.is_encdec:
-            raise NotImplementedError(
-                f"{cfg.name}: the encoder-decoder stack comes in a later slice of the port")
-        if spec.kind != "attn" or spec.mlp != "dense":
-            raise NotImplementedError(f"{cfg.name}: layer spec {spec} is not ported")
+ENC_SPEC = LayerSpec(kind="attn", mlp="dense")  # an encoder layer
 
 
 # ----------------------------------------------------------------- params
 
 
-class DecoderLayer(nn.Module):
-    def __init__(self, cfg: ModelConfig, attn: L.Attention, mlp: L.MLP, *, device=None,
+class Layer(nn.Module):
+    """One layer's parameters: `pre_norm` and `attn` or `ssm`; `cross_norm`
+    and `cross` (cross_attn); `mlp_norm` and `mlp` or `moe` (an MLP)."""
+
+    def __init__(self, cfg: ModelConfig, spec: LayerSpec, new, *, device=None,
                  dtype=torch.float32):
         super().__init__()
         d = cfg.d_model
-        self.pre_norm = nn.Parameter(torch.zeros(d, device=device, dtype=dtype),
-                                     requires_grad=False)
-        self.attn = attn
-        self.mlp_norm = nn.Parameter(torch.zeros(d, device=device, dtype=dtype),
-                                     requires_grad=False)
-        self.mlp = mlp
+
+        def norm():
+            return nn.Parameter(torch.zeros(d, device=device, dtype=dtype), requires_grad=False)
+
+        self.pre_norm = norm()
+        if spec.kind == "attn":
+            self.attn = new("attn")
+        else:
+            self.ssm = new("ssm")
+        if spec.cross_attn:
+            self.cross_norm = norm()
+            self.cross = new("attn")
+        if spec.mlp != "none":
+            self.mlp_norm = norm()
+            if spec.mlp == "dense":
+                self.mlp = new("mlp")
+            else:
+                self.moe = new("moe")
 
 
-class DecoderLM(nn.Module):
+class LM(nn.Module):
     """The parameters: `embed` [vocab, d], `final_norm` [d], `unembed`
-    [d, vocab] (untied embeddings only) and `layers` (n_layers)."""
+    [d, vocab] (untied embeddings only), `layers` (n_layers) and, for an
+    encoder-decoder, `enc_layers` (n_enc_layers) and `enc_final_norm`."""
 
-    def __init__(self, cfg: ModelConfig, layers: list, *, device=None, dtype=torch.float32):
+    def __init__(self, cfg: ModelConfig, new, *, device=None, dtype=torch.float32):
         super().__init__()
         d = cfg.d_model
-        self.embed = nn.Parameter(torch.zeros(cfg.vocab, d, device=device, dtype=dtype),
-                                  requires_grad=False)
-        self.final_norm = nn.Parameter(torch.zeros(d, device=device, dtype=dtype),
-                                       requires_grad=False)
+        kw = dict(device=device, dtype=dtype)
+
+        def param(*shape):
+            return nn.Parameter(torch.zeros(shape, **kw), requires_grad=False)
+
+        self.embed = param(cfg.vocab, d)
+        self.final_norm = param(d)
         if not cfg.tie_embeddings:
-            self.unembed = nn.Parameter(torch.zeros(d, cfg.vocab, device=device, dtype=dtype),
-                                        requires_grad=False)
-        self.layers = nn.ModuleList(layers)
+            self.unembed = param(d, cfg.vocab)
+        self.layers = nn.ModuleList(Layer(cfg, cfg.group[i % len(cfg.group)], new, **kw)
+                                    for i in range(cfg.n_layers))
+        if cfg.is_encdec:
+            self.enc_layers = nn.ModuleList(Layer(cfg, ENC_SPEC, new, **kw)
+                                            for _ in range(cfg.n_enc_layers))
+            self.enc_final_norm = param(d)
 
 
-def empty_params(cfg: ModelConfig, *, device=None, dtype=torch.float32) -> DecoderLM:
-    """A `DecoderLM` of zeros in `dtype` on `device` (to be filled)."""
-    check_supported(cfg)
+def empty_params(cfg: ModelConfig, *, device=None, dtype=torch.float32) -> LM:
+    """An `LM` of zeros in `dtype` on `device` (to be filled); the MoE
+    router and the SSM's dt_bias, A_log and D are f32, as in the reference."""
     kw = dict(device=device, dtype=dtype)
-    layers = [DecoderLayer(cfg, L.Attention(cfg, **kw), L.MLP(cfg, **kw), **kw)
-              for _ in range(cfg.n_layers)]
-    return DecoderLM(cfg, layers, **kw)
+    kinds = {"attn": L.Attention, "mlp": L.MLP, "moe": MOE.MoE, "ssm": SSM.SSM}
+    return LM(cfg, lambda kind: kinds[kind](cfg, **kw), **kw)
 
 
-def init_params(cfg: ModelConfig, generator: torch.Generator,
-                dtype=torch.bfloat16) -> DecoderLM:
+def init_params(cfg: ModelConfig, generator: torch.Generator, dtype=torch.bfloat16) -> LM:
     """Random parameters at the reference's scales, drawn from `generator`
-    on its device (the numbers are not jax.random's)."""
-    check_supported(cfg)
+    on its device (the numbers are not jax.random's); norm scales zero."""
     gen, d = generator, cfg.d_model
-    kw = dict(device=gen.device, dtype=dtype)
-    embed = L._normal(gen, (cfg.vocab, d), d ** -0.5, dtype)
-    unembed = None if cfg.tie_embeddings else L._normal(gen, (d, cfg.vocab), d ** -0.5, dtype)
-    layers = [DecoderLayer(cfg, L.init_attention(cfg, gen, dtype), L.init_mlp(cfg, gen, dtype),
-                           **kw) for _ in range(cfg.n_layers)]
-    params = DecoderLM(cfg, layers, **kw)
-    params.embed.data = embed
-    if unembed is not None:
-        params.unembed.data = unembed
+    kinds = {"attn": L.init_attention, "mlp": L.init_mlp, "moe": MOE.init_moe,
+             "ssm": SSM.init_ssm}
+    params = LM(cfg, lambda kind: kinds[kind](cfg, gen, dtype), device=gen.device, dtype=dtype)
+    params.embed.data = L._normal(gen, (cfg.vocab, d), d ** -0.5, dtype)
+    if not cfg.tie_embeddings:
+        params.unembed.data = L._normal(gen, (d, cfg.vocab), d ** -0.5, dtype)
     return params
 
 
 # ---------------------------------------------------------------- forward
 
 
-def _apply_layer(cfg, spec: LayerSpec, p: DecoderLayer, x, positions, *, cache=None):
+def _apply_layer(cfg, spec: LayerSpec, p: Layer, x, positions, *, causal, enc_out=None,
+                 cache=None):
     h = L.rms_norm(x, p.pre_norm, cfg.norm_eps)
-    h, _ = L.attention(cfg, p.attn, h, positions, causal=True, window=spec.sliding_window,
-                       cache=cache)
+    if spec.kind == "attn":
+        h, _ = L.attention(cfg, p.attn, h, positions, causal=causal,
+                           window=spec.sliding_window, cache=cache)
+    else:
+        h, _ = SSM.ssm_block(cfg, p.ssm, h, cache=cache)
     x = x + h
-    h = L.rms_norm(x, p.mlp_norm, cfg.norm_eps)
-    return x + L.mlp(cfg, p.mlp, h)
+    if spec.cross_attn:
+        h = L.rms_norm(x, p.cross_norm, cfg.norm_eps)
+        h, _ = L.attention(cfg, p.cross, h, positions, causal=False, kv_x=enc_out)
+        x = x + h
+    if spec.mlp != "none":
+        h = L.rms_norm(x, p.mlp_norm, cfg.norm_eps)
+        h = L.mlp(cfg, p.mlp, h) if spec.mlp == "dense" else MOE.moe_ffn_ep(cfg, p.moe, h)
+        x = x + h
+    return x
+
+
+@torch.no_grad()
+def encode(cfg: ModelConfig, params: LM, *, enc_tokens: Optional[torch.Tensor] = None,
+           enc_embeds: Optional[torch.Tensor] = None) -> Optional[torch.Tensor]:
+    """The encoder of an encoder-decoder config: enc_out [B, Se, d] from
+    `enc_embeds` [B, Se, d] or `enc_tokens` [B, Se] (embedded), None when
+    neither is given. Not causal; positions 0..Se-1."""
+    if enc_embeds is None and enc_tokens is not None:
+        enc_embeds = params.embed[enc_tokens]
+    if enc_embeds is None:
+        return None
+    B, Se = enc_embeds.shape[:2]
+    enc_pos = torch.arange(Se, device=enc_embeds.device)[None, :].expand(B, Se)
+    x = enc_embeds
+    for p in params.enc_layers:
+        x = _apply_layer(cfg, ENC_SPEC, p, x, enc_pos, causal=False)
+    return L.rms_norm(x, params.enc_final_norm, cfg.norm_eps)
 
 
 @torch.no_grad()
 def forward(
     cfg: ModelConfig,
-    params: DecoderLM,
+    params: LM,
     *,
     tokens: Optional[torch.Tensor] = None,  # [B, S]
     embeds: Optional[torch.Tensor] = None,  # [B, S, d] (modality frontend stub)
     positions: Optional[torch.Tensor] = None,
+    enc_tokens: Optional[torch.Tensor] = None,
+    enc_embeds: Optional[torch.Tensor] = None,
+    enc_out: Optional[torch.Tensor] = None,  # a precomputed encoder output (decode)
     caches: Optional[list] = None,  # init_caches(...), written in place
     cache_pos: Optional[int] = None,
 ):
     """Returns (logits [B, S, vocab], caches)."""
-    check_supported(cfg)
     x = params.embed[tokens] if embeds is None else embeds
     B, S = x.shape[:2]
     if positions is None:
@@ -134,9 +179,11 @@ def forward(
         positions = base.expand(B, S)
         if cfg.mrope_sections is not None:
             positions = positions[None].expand(3, B, S)
+    if cfg.is_encdec and enc_out is None:
+        enc_out = encode(cfg, params, enc_tokens=enc_tokens, enc_embeds=enc_embeds)
     for layer, p in enumerate(params.layers):
-        x = _apply_layer(cfg, cfg.group[layer % len(cfg.group)], p, x, positions,
-                         cache=None if caches is None else caches[layer])
+        x = _apply_layer(cfg, cfg.group[layer % len(cfg.group)], p, x, positions, causal=True,
+                         enc_out=enc_out, cache=None if caches is None else caches[layer])
     x = L.rms_norm(x, params.final_norm, cfg.norm_eps)
     unembed = params.embed.T if cfg.tie_embeddings else params.unembed
     logits = x @ unembed
@@ -150,10 +197,23 @@ def forward(
 
 def init_caches(cfg: ModelConfig, batch: int, max_seq: int, dtype=torch.bfloat16,
                 device=None) -> list:
-    """One `KVCache` a layer: k, v zeros [batch, max_seq, Hkv, hd] in
-    `dtype`, nothing written."""
-    check_supported(cfg)
-    shape = (batch, max_seq, cfg.n_kv_heads, cfg.head_dim_)
-    return [L.KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
-                      v=torch.zeros(shape, dtype=dtype, device=device))
-            for _ in range(cfg.n_layers)]
+    """One cache a layer, nothing written: a `KVCache` (k, v zeros [batch,
+    max_seq, Hkv, hd] in `dtype`) for an attention mixer, an `SSMCache`
+    (state f32 [batch, nh, P, N], conv [batch, K-1, c] in `dtype`) for an
+    SSM mixer."""
+    kv_shape = (batch, max_seq, cfg.n_kv_heads, cfg.head_dim_)
+    out = []
+    for layer in range(cfg.n_layers):
+        if cfg.group[layer % len(cfg.group)].kind == "attn":
+            out.append(L.KVCache(k=torch.zeros(kv_shape, dtype=dtype, device=device),
+                                 v=torch.zeros(kv_shape, dtype=dtype, device=device)))
+        else:
+            s = cfg.ssm
+            d_in = s.expand * cfg.d_model
+            nh = d_in // s.head_dim
+            out.append(SSM.SSMCache(
+                state=torch.zeros((batch, nh, s.head_dim, s.d_state), dtype=torch.float32,
+                                  device=device),
+                conv=torch.zeros((batch, s.d_conv - 1, d_in + 2 * s.d_state), dtype=dtype,
+                                 device=device)))
+    return out

@@ -101,3 +101,18 @@ def test_decode_split_count(B, S, Hkv, G, D, dtype):
     assert -(-tiles // per) == nsplit
     if -(-S // pt_attn.SPLIT_KEYS) <= pt_attn.MAX_SPLITS:
         assert per * tile <= max(pt_attn.SPLIT_KEYS, tile)
+
+
+def test_decode_padded_widths_reach_512():
+    """The CUDA kernel's builds: any head_dim 1-512 runs on the least built
+    width at or above it (rows of 2 KB, f32 at 512, in tiles of 16 keys);
+    above 512 the wrapper refuses it with a ValueError that names the
+    limit."""
+    assert pt_attn.HEAD_DIMS[-1] == 512
+    for D, want in ((1, 32), (256, 256), (257, 512), (320, 512), (384, 512), (512, 512)):
+        assert pt_attn.padded_dim(D) == want
+    assert pt_attn.tile_keys(512, torch.bfloat16) == 32
+    assert pt_attn.tile_keys(300, torch.float32) == 16
+    assert pt_attn.tile_keys(256, torch.float32) == 32
+    with pytest.raises(ValueError, match="head_dim up to 512, got 513"):
+        pt_attn.padded_dim(513)

@@ -75,12 +75,17 @@ Phases; a failed check raises and the script exits non-zero:
               zeroed just before and read just after): the graph written
               to a shard store on local disk (shards of 2^20 edges), its
               degrees (equal to the graph's) and the external degree-sum
-              order, partition_store (ebv, block 4,096) with its state on
-              the card, against the in-memory driver's stream on the card:
-              the order, the assignments in stream and input order and the
-              counters, bitwise; edges/s and the counters' RF beside
-              partition_metrics'. On twitter_like the same partition, then
-              the streamed build of edge_part_stream against build_subgraphs
+              order, partition_store (ebv, block 256) with its state on
+              the card, against the main path's in-memory ebg_chunked
+              partition (block 256): the order and the assignments in
+              stream and input order, bitwise; the edge counters equal to
+              partition_metrics' edges per part, every vertex counter at
+              least its |V_i|; edges/s and the counters' RF beside
+              partition_metrics'. On twitter_like partition_store at its
+              default block (4,096, the block-wide commit kernel) against
+              the in-memory stream at that block (order, assignments,
+              counters, bitwise; the commit stream timed), then the
+              streamed build of edge_part_stream against build_subgraphs
               on the same partition (every field) and CC on both (labels,
               every stat; the labels against label propagation).
               Then the distributed path on a NCCL world of this process
@@ -177,12 +182,33 @@ Phases; a failed check raises and the script exits non-zero:
               peak memory. decode_attention's kernels entries at phi3's
               step, seamless's self- and cross-attention, and the D = 512
               build (no config path), each held at the whole range and at
-              key ranges with NaN outside, timed beside its bound and SDPA.
-              One {"lm_families": ...} stdout line. `--lm-only` runs the
-              build and phases 6 and 7 alone.
+              key ranges with NaN outside, timed beside its bound and SDPA;
+              and head_dim 1,024 on the wide source (decode_attn_wide.cu:
+              B 2, Hq 8 over 2, 2,048 keys; bf16 and f32 q, softcap 0 and
+              50), against the plain version, timed beside its bound and
+              SDPA (softcap 0). One {"lm_families": ...} stdout line.
+  8. lm_train the LM training path: llama3_2_3b at its published widths
+              (3.21 B f32 parameters drawn on the card from seed 0) for 6
+              steps and mamba2_780m whole for 4, each on one repeated batch
+              of B 2 x 1,024 tokens from the ported pipeline
+              (repro_torch.data.pipeline), AdamW lr 3e-4, remat; the launch
+              counts zeroed just before and read just after: no kernel
+              launches (the training path runs no TPU-kernel counterpart);
+              every loss and grad norm finite, the last loss below the
+              first; ms a step (CUDA events), tokens/s, TFLOP/s against the
+              f32 peak, peak memory. Then each of the ten configs at
+              reduced_config: one train step on the card against the same
+              step on the CPU (loss and grad norm within their limits).
+              Then the launcher (repro_torch.launch.train, preset small) in
+              deterministic mode, in a process of its own that alone sets
+              CUBLAS_WORKSPACE_CONFIG: 6 steps checkpointed at 3 and 6, and
+              a run resumed from the step-3 checkpoint alone, equal bit for
+              bit (losses, parameters, optimizer state). One {"lm_train":
+              ...} stdout line. `--lm-only` runs the build and phases 6-8
+              alone.
 
 Prints the card's name and power limit, the {"serve": ...}, {"lm_serve": ...},
-{"lm_families": ...} and {"kernels": [...]} lines, and last
+{"lm_families": ...}, {"lm_train": ...} and {"kernels": [...]} lines, and last
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 It needs the repository around it and a CUDA card; without either it fails.
 """
@@ -275,9 +301,11 @@ BATCH_B = 8  # the batched superstep launch timed at full width (BFS)
 # Crash and resume at full width: (program, checkpoint_every, crash_at_superstep),
 # each crash after at least one snapshot past superstep 0.
 RESILIENCE = (("cc", 1, 2), ("sssp", 2, 2), ("pr", 5, 12))
-# The out-of-core pipeline: shards of 2^20 edges, blocks of 4,096 (the
-# default of partition_store).
-OUT_OF_CORE = dict(shard_edges=1 << 20, block=4096)
+# The out-of-core pipeline: shards of 2^20 edges; at full width blocks of
+# 256 (the main path's ebg_chunked block, which it is held against), on
+# twitter_like blocks of 4,096 (partition_store's default, the block-wide
+# commit kernel), held against the in-memory stream at that block.
+OUT_OF_CORE = dict(shard_edges=1 << 20, block=256, tw_block=4096)
 # The sharded out-of-core layout's block on twitter_like (one launch and
 # one all_gather a block).
 DIST_SHARDED_BLOCK = 256
@@ -319,6 +347,35 @@ LM_FAMILY_ATOL = {"phi3_5_moe": 0.125, "mamba2_780m": 0.5, "seamless_m4t_large_v
 MAMBA2_F32_ATOL = 2e-3
 # decode_attention's D = 512 build: (B, Hq, Hkv, D, S) of a GQA decode step.
 WIDE_ATTN = dict(B=8, Hq=32, Hkv=8, D=512, S=4096)
+# Past 512: the wide source (decode_attn_wide.cu).
+WIDEST_ATTN = dict(B=2, Hq=8, Hkv=2, D=1024, S=2048)
+# The LM training phase (phase 8): f32 parameters drawn on the card from
+# seed 0, as the training launcher initialises them; B = 2 sequences of
+# 1,024 tokens from the ported pipeline, one batch repeated every step so
+# that a falling loss shows the gradients flow; AdamW at lr 3e-4, warmup 1,
+# cosine over the run; remat (one checkpoint segment a layer group).
+# llama3_2_3b at its published widths (3.21 B parameters: with grads and
+# two f32 states 51.4 GB) for 6 steps, mamba2_780m whole for 4.
+LM_TRAIN = dict(batch=2, seq=1024, lr=3e-4, seed=0)
+LM_TRAIN_MODELS = (("llama3_2_3b", 6), ("mamba2_780m", 4))
+# The ten reduced configs, one train step on the card against the same step
+# on the CPU (the same f32 weights and batch; no TF32): the loss within
+# 1e-4 and the grad norm within 1e-4 of itself, the sums in another order.
+# A MoE config takes the first data seed whose router top-k margins exceed
+# 1e-3 on the CPU, so that no near tie picks another expert on the card.
+TRAIN_CARD_LOSS_ATOL = 1e-4
+TRAIN_CARD_NORM_RTOL = 1e-4
+TRAIN_ROUTE_MARGIN = 1e-3
+TRAIN_REDUCED = dict(batch=2, seq=32, enc_len=12)
+# Resume, bit for bit: the launcher at preset small, checkpoints every 3 of 6
+# steps, once through and once resumed from its step-3 checkpoint alone, in
+# deterministic mode, which needs a fixed cuBLAS workspace set before cuBLAS
+# starts. It runs in a process of its own (this script's --resume-child
+# mode): with the setting in this process every LM decode step took 10-20 ms
+# longer (an H100 80GB HBM3 at 700 W).
+TRAIN_RESUME = ["--preset", "small", "--steps", "6", "--ckpt-every", "3", "--batch", "8",
+                "--seq", "128", "--log-every", "100"]
+RESUME_CUBLAS = ":4096:8"
 
 
 def log(msg: str) -> None:
@@ -1122,7 +1179,7 @@ def phase_full(dev, log2_edges):
     st.s["serve"] = serve["phase_s"]
     resilience = phase_resilience(pipe, runs)
     st.s["resilience"] = resilience["phase_s"]
-    outofcore = phase_outofcore(g, dev)
+    outofcore = phase_outofcore(g, pipe, m, dev)
     st.s["outofcore"] = outofcore["phase_s"]
     distributed = phase_distributed(pipe, runs, drivers, dev)
     st.s["distributed"] = distributed["phase_s"]
@@ -1146,7 +1203,7 @@ def phase_full(dev, log2_edges):
         e["dist_launches"] = distributed["stepper_launches"].get(e["name"], 0)
         e["sharded_launches"] = distributed["sharded_launches"].get(e["name"], 0)
     next(e for e in kernels if e["name"] == "ebg_commit").update(
-        outofcore_block=OUT_OF_CORE["block"],
+        outofcore_block=OUT_OF_CORE["tw_block"], outofcore_edges=outofcore["build"]["edges"],
         outofcore_stream_ms=outofcore["commit_stream_ms"],
         outofcore_stream_ms_per_block=outofcore["commit_ms_per_block"],
         outofcore_block_call_ms=outofcore["block_call_ms"])
@@ -1322,25 +1379,24 @@ def phase_resilience(pipe, runs):
     return dict(programs=out, launches=launches, phase_s=time.perf_counter() - t0)
 
 
-def phase_outofcore(g, dev):
+def phase_outofcore(g, pipe, m, dev):
     """The out-of-core pipeline at full width: the graph written to a shard
     store on local disk, its degrees and the external degree-sum order,
-    then partition_store (ebv, p=32, block 4,096) with its state on the
-    card, launch counts zeroed just before and read just after. Against the
-    in-memory driver's stream on the card (prepare_stream and one
-    ebg_commit_stream, the body of streaming_chunked_partition): the order,
-    the assignments in stream and input order and the counters, bitwise;
-    the counters' RF beside partition_metrics'. Then, on twitter_like (the
-    full-width build would pass the time limit), the streamed build from
-    edge_part_stream against build_subgraphs on the same partition (every
-    field), and CC on both. The store and the order's buckets go to a
-    temporary directory, removed at the end."""
+    then partition_store (ebv, p=32, block 256) with its state on the card,
+    launch counts zeroed just before and read just after. Against the main
+    path's in-memory ebg_chunked partition of the same graph (p = 32, block
+    256: `pipe`, and its partition_metrics `m`): the order, the assignments
+    in stream and input order, bitwise; the edge counters equal to
+    partition_metrics' edges per part, bit for bit, and every vertex counter
+    at least its |V_i|. Then, on twitter_like (the full-width build would
+    pass the time limit), partition_store at its default block (4,096, the
+    block-wide kernel) against the in-memory stream at that block, and the
+    streamed build from edge_part_stream against build_subgraphs on the
+    same partition (every field), and CC on both. The store and the order's
+    buckets go to a temporary directory, removed at the end."""
     from repro_torch.core import outofcore as oc
-    from repro_torch.core.metrics import partition_metrics
-    from repro_torch.core.streaming import prepare_stream
     from repro_torch.data import edgeshards as es
     from repro_torch.kernels import dispatch
-    from repro_torch.kernels import ebg_commit as ebg
 
     t0 = time.perf_counter()
     st = Stages()
@@ -1359,61 +1415,32 @@ def phase_outofcore(g, dev):
         check(launches.get("ebg_commit", 0) > 0, "the out-of-core path launched ebg_commit no time")
         check(res.result.part.device.type == "cuda", "the out-of-core partition is not on the card")
     E = g.num_edges
-
-    # The in-memory driver's stream at the same block, with its counters;
-    # the kernel timed apart (CUDA events), and one block's wrapper call
-    # (ebg_commit_block: argument checks, the id check, both transposes),
-    # which partition_store would pay once a block if it fed blocks alone.
-    timing = {}
-
-    def in_memory():
-        mem = prepare_stream(g, PARTS, "ebv", block=block, device=dev)
-        keep, e_c, v_c = mem.new_state(PARTS, g.num_vertices)
-        t0e, t1e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        t0e.record()
-        parts = ebg.ebg_commit_stream(keep, e_c, v_c, mem.u, mem.v, mem.valid, mem.coef,
-                                      block=block, balance=mem.balance)
-        t1e.record()
-        t1e.synchronize()
-        timing["commit_stream_ms"] = t0e.elapsed_time(t1e)
-        mid = slice((res.num_blocks // 2) * block, (res.num_blocks // 2 + 1) * block)
-        args = (keep, e_c, v_c, mem.u[mid], mem.v[mid], mem.valid[mid], mem.coef)
-        timing["block_call_ms"] = cuda_ms(lambda: ebg.ebg_commit_block(*args), reps=20)
-        return mem.order, parts[:E], e_c, v_c
-
-    launches_partition = dict(launches)
-    order, parts, e_c, v_c = st("oc_in_memory", in_memory)
-    timing["commit_ms_per_block"] = timing["commit_stream_ms"] / res.num_blocks
-    log(f"outofcore: the commit kernel at block {block}: {timing['commit_stream_ms']:.1f} ms "
-        f"the stream, {timing['commit_ms_per_block'] * 1e3:.2f} µs a block; one "
-        f"ebg_commit_block call {timing['block_call_ms']:.3f} ms")
+    mem = pipe.result  # the main path's ebg_chunked partition (block 256)
+    order = mem.order.numpy()
     check(np.array_equal(res.result.order.numpy(), order),
-          "degree_sum_stream's permutation differs from degree_sum_order's")
-    check(torch.equal(res.result.part, parts), "the out-of-core assignments differ (stream order)")
-    in_input = np.empty(E, np.int32)
-    in_input[order] = parts.cpu().numpy()
-    check(np.array_equal(res.result.part_in_input_order(), in_input),
+          "degree_sum_stream's permutation differs from the main path's degree-sum order")
+    check(torch.equal(res.result.part, mem.part),
+          "the out-of-core assignments differ (stream order)")
+    check(np.array_equal(res.result.part_in_input_order(), mem.part_in_input_order()),
           "the out-of-core assignments differ (input order)")
-    check(np.array_equal(res.e_count, e_c.cpu().numpy()) and
-          np.array_equal(res.v_count, v_c.cpu().numpy()), "the out-of-core counters differ")
-    m = st("oc_metrics", partition_metrics, g, res.result)
     check(np.array_equal(res.e_count, m.edges_per_part.astype(np.float32)),
           "the edge counters differ from partition_metrics'")
     check(bool((res.v_count >= m.vertices_per_part).all()),
           "a vertex counter is below partition_metrics' |V_i|")
     part_s = st.s["oc_partition"]
-    log(f"outofcore: partition_store == the in-memory stream (order, parts, counters); "
-        f"{launches.get('ebg_commit', 0)} ebg_commit launches, {E / part_s:.4g} edges/s "
-        f"({E / (part_s + st.s['oc_order']):.4g} with the order); RF counters "
-        f"{res.replication_factor:.6f}, partition_metrics {m.replication_factor:.6f}")
-    row = dict(edges=E, blocks=res.num_blocks, disk_bytes=disk, stage_s=dict(st.s),
-               launches=launches, partition_launches=launches_partition, **timing,
-               edges_per_s=E / part_s,
+    log(f"outofcore: partition_store == the main path's ebg_chunked (order, parts); edge "
+        f"counters == partition_metrics'; {launches.get('ebg_commit', 0)} ebg_commit launches, "
+        f"{E / part_s:.4g} edges/s ({E / (part_s + st.s['oc_order']):.4g} with the order); RF "
+        f"counters {res.replication_factor:.6f}, partition_metrics {m.replication_factor:.6f}")
+    row = dict(edges=E, blocks=res.num_blocks, block=block, disk_bytes=disk, stage_s=dict(st.s),
+               launches=launches, partition_launches=dict(launches), edges_per_s=E / part_s,
                edges_per_s_with_order=E / (part_s + st.s["oc_order"]),
                rf_counters=res.replication_factor, rf_metrics=m.replication_factor,
                edge_imbalance=m.edge_imbalance, vertex_imbalance=m.vertex_imbalance)
-    del res, parts, e_c, v_c, order
+    del res, order
     row["build"] = outofcore_build(dev)
+    for k in ("commit_stream_ms", "commit_ms_per_block", "block_call_ms"):
+        row[k] = row["build"][k]
     # The phase's: both partition_store runs (full width, twitter_like) and
     # CC on the streamed build, each counted around its own call.
     for path in ("partition_launches", "cc_launches"):
@@ -1430,6 +1457,7 @@ def outofcore_build(dev):
     the partition's stream order), CC's labels and every stat against CC on
     that build and the labels against label propagation."""
     from repro_torch.core import outofcore as oc
+    from repro_torch.core.streaming import prepare_stream
     from repro_torch.core.types import Graph, PartitionResult
     from repro_torch.data import edgeshards as es
     from repro_torch.graph import algorithms as alg
@@ -1438,21 +1466,64 @@ def outofcore_build(dev):
     from repro_torch.graph.engine import run_bsp
     from repro_torch.graph.generate import make_graph
     from repro_torch.kernels import dispatch
+    from repro_torch.kernels import ebg_commit as ebg
 
     st = Stages()
     tw = make_graph("twitter_like")
-    V = tw.num_vertices
+    V, block = tw.num_vertices, OUT_OF_CORE["tw_block"]
     with tempfile.TemporaryDirectory(prefix="chip_smoke_tw_") as tmp:
         store = es.write_graph(tw, Path(tmp) / "store", shard_edges=OUT_OF_CORE["shard_edges"])
         dispatch.reset_launches()
-        res = st("tw_partition", oc.partition_store, store, PARTS, "ebv",
-                 block=OUT_OF_CORE["block"], order_workdir=Path(tmp) / "order", device=dev)
+        res = st("tw_partition", oc.partition_store, store, PARTS, "ebv", block=block,
+                 order_workdir=Path(tmp) / "order", device=dev)
         partition_launches = dict(dispatch.LAUNCHES)
         check(partition_launches.get("ebg_commit", 0) > 0,
               "partition_store on twitter_like launched ebg_commit no time")
         sub = st("tw_build_stream", build_subgraphs_stream,
                  lambda: res.edge_part_stream(OUT_OF_CORE["shard_edges"]), V, PARTS,
                  symmetrize=True, device=dev)
+    # partition_store at block 4,096 against the in-memory stream at that
+    # block (prepare_stream and one ebg_commit_stream, the body of
+    # streaming_chunked_partition): order, assignments and counters,
+    # bitwise. The commit stream is timed apart (CUDA events), and one
+    # block's wrapper call (ebg_commit_block: argument checks, the id
+    # check, both transposes).
+    timing = {}
+
+    def in_memory():
+        mem = prepare_stream(tw, PARTS, "ebv", block=block, device=dev)
+        keep, e_c, v_c = mem.new_state(PARTS, V)
+        t0e, t1e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0e.record()
+        parts = ebg.ebg_commit_stream(keep, e_c, v_c, mem.u, mem.v, mem.valid, mem.coef,
+                                      block=block, balance=mem.balance)
+        t1e.record()
+        t1e.synchronize()
+        timing["commit_stream_ms"] = t0e.elapsed_time(t1e)
+        mid = slice((res.num_blocks // 2) * block, (res.num_blocks // 2 + 1) * block)
+        args = (keep, e_c, v_c, mem.u[mid], mem.v[mid], mem.valid[mid], mem.coef)
+        timing["block_call_ms"] = cuda_ms(lambda: ebg.ebg_commit_block(*args), reps=20)
+        return mem.order, parts[:tw.num_edges], e_c, v_c
+
+    mem_order, mem_parts, e_c, v_c = st("tw_in_memory", in_memory)
+    timing["commit_ms_per_block"] = timing["commit_stream_ms"] / res.num_blocks
+    check(np.array_equal(res.result.order.numpy(), mem_order),
+          "twitter_like: degree_sum_stream's permutation differs from degree_sum_order's")
+    check(torch.equal(res.result.part, mem_parts),
+          "twitter_like: the out-of-core assignments differ (stream order)")
+    in_input = np.empty(tw.num_edges, np.int32)
+    in_input[mem_order] = mem_parts.cpu().numpy()
+    check(np.array_equal(res.result.part_in_input_order(), in_input),
+          "twitter_like: the out-of-core assignments differ (input order)")
+    check(np.array_equal(res.e_count, e_c.cpu().numpy()) and
+          np.array_equal(res.v_count, v_c.cpu().numpy()),
+          "twitter_like: the out-of-core counters differ")
+    log(f"outofcore twitter_like: partition_store == the in-memory stream at block {block} "
+        f"(order, parts, counters); the commit kernel {timing['commit_stream_ms']:.1f} ms the "
+        f"stream, {timing['commit_ms_per_block'] * 1e3:.2f} µs a block; one ebg_commit_block "
+        f"call {timing['block_call_ms']:.3f} ms")
+    del mem_parts, e_c, v_c
+
     order = res.result.order
     in_stream = Graph(src=tw.src[order], dst=tw.dst[order], num_vertices=V)
     ref = st("tw_build", build_subgraphs, in_stream,
@@ -1479,9 +1550,10 @@ def outofcore_build(dev):
         f"build's and label propagation; RF (counters) {res.replication_factor:.6f}; "
         f"launches: partition_store {partition_launches}, CC on the streamed build "
         f"{cc_launches}")
-    return dict(edges=tw.num_edges, stage_s=dict(st.s), cc_supersteps=stats.supersteps,
-                cc_messages=stats.total_messages, rf_counters=res.replication_factor,
-                partition_launches=partition_launches, cc_launches=cc_launches)
+    return dict(edges=tw.num_edges, block=block, blocks=res.num_blocks, stage_s=dict(st.s),
+                cc_supersteps=stats.supersteps, cc_messages=stats.total_messages,
+                rf_counters=res.replication_factor, partition_launches=partition_launches,
+                cc_launches=cc_launches, **timing)
 
 
 # ------------------------------------------------------ the distributed path
@@ -2233,21 +2305,22 @@ def phase_lm(dev):
     return out, entries
 
 
-def attention_entry(name, q, k, v, end, ranges, launches, shape, launches_of):
+def attention_entry(name, q, k, v, end, ranges, launches, shape, launches_of, softcap=0.0):
     """decode_attention's kernels entry for one decode shape: q [B, Hq, D]
     over keys [0, end) of k, v [B, S, Hkv, D] (a live cache read in place,
     or a fresh K and V), held against the plain version at ATTN_TOL with
     its x1.01 control, also at each key range of `ranges` on a copy of k
     and v that is NaN outside it; timed beside its bound, the plain version
-    and SDPA on the same keys (a bf16 query)."""
+    and, without a softcap, SDPA on the same keys (a bf16 query)."""
     from repro_torch.kernels import decode_attn, ops
 
     B, Hq, D = q.shape
     Hkv = k.shape[2]
 
     def held(kc, vc, lo, hi):
-        got = ops.decode_attention(q, kc, vc, start=lo, end=hi)
-        want = decode_attn.decode_attention_plain(q, k[:, lo:hi], v[:, lo:hi]).float()
+        got = ops.decode_attention(q, kc, vc, start=lo, end=hi, softcap=softcap)
+        want = decode_attn.decode_attention_plain(q, k[:, lo:hi], v[:, lo:hi],
+                                                  softcap=softcap).float()
         rtol, atol = ATTN_TOL[q.dtype]
         check(got.dtype == q.dtype and bool(torch.isfinite(got.float()).all()),
               f"{name} keys [{lo}, {hi}): output type or values")
@@ -2270,34 +2343,44 @@ def attention_entry(name, q, k, v, end, ranges, launches, shape, launches_of):
             t[:, hi:] = float("nan")
         at_ranges[f"[{lo}, {hi})"] = held(kn, vn, lo, hi)[1]
         del kn, vn
-    ms = cuda_ms(lambda: ops.decode_attention(q, k, v, start=0, end=end), reps=50)
-    plain_ms = cuda_ms(lambda: decode_attn.decode_attention_plain(q, k[:, :end], v[:, :end]),
-                       reps=5)
-    q4, k4, v4 = q.to(k.dtype)[:, :, None], k[:, :end].transpose(1, 2), \
-        v[:, :end].transpose(1, 2)
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    library_ms = cuda_ms(lambda: sdpa(q4, k4, v4, enable_gqa=True), reps=50)
+    ms = cuda_ms(lambda: ops.decode_attention(q, k, v, start=0, end=end, softcap=softcap),
+                 reps=50)
+    plain_ms = cuda_ms(lambda: decode_attn.decode_attention_plain(q, k[:, :end], v[:, :end],
+                                                                  softcap=softcap), reps=5)
+    library_ms = None
+    if not softcap:
+        q4, k4, v4 = q.to(k.dtype)[:, :, None], k[:, :end].transpose(1, 2), \
+            v[:, :end].transpose(1, 2)
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        library_ms = cuda_ms(lambda: sdpa(q4, k4, v4, enable_gqa=True), reps=50)
     io_bytes = nbytes(q, got) + 2 * B * end * Hkv * D * k.element_size()
     n_ops = 4.0 * B * Hq * end * D
     peak = BF16_FLOPS if q.dtype == torch.bfloat16 else F32_FLOPS
     bound = max(io_bytes / HBM_BYTES_PER_S, n_ops / peak)
-    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-    nsplit = decode_attn.split_count(B, end, Hkv, Hq // Hkv, sms,
-                                     decode_attn.tile_keys(D, k.dtype))
+    source = decode_attn.kernel_source(D)
+    if source == "decode_attn":
+        sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+        nsplit = decode_attn.split_count(B, end, Hkv, Hq // Hkv, sms,
+                                         decode_attn.tile_keys(D, k.dtype))
+        plan = f"{nsplit} splits"
+    else:
+        plan = "scores, softmax and output launches"
     rtol, atol = ATTN_TOL[q.dtype]
     return dict(
-        name=name, route="cuda", source="src/repro_torch/kernels/csrc/decode_attn.cu",
+        name=name, route="cuda", source=f"src/repro_torch/kernels/csrc/{source}.cu",
         replaces="src/repro/kernels/decode_attn.py:61", launches=launches,
         launches_of=launches_of, max_abs_err=reading["max_abs_err"], ms=ms, plain_ms=plain_ms,
         bound_ms=1e3 * bound,
         bound_by="bytes" if io_bytes / HBM_BYTES_PER_S >= n_ops / peak else "operations",
         library_ms=library_ms,
-        library="F.scaled_dot_product_attention(enable_gqa=True), bf16 q",
+        library="F.scaled_dot_product_attention(enable_gqa=True), bf16 q" if library_ms
+        is not None else "none computes the softcap",
         limit=f"rtol {rtol}, atol {atol}", over_limit=reading["over_limit"],
         control_over_limit=reading["control_over_limit"], key_ranges_nan_outside=at_ranges,
+        softcap=softcap,
         shape=f"{shape}: B={B}, Hq={Hq}, Hkv={Hkv}, D={D}, keys [0, {end}) of "
               f"[{B}, {k.shape[1]}, {Hkv}, {D}] {str(k.dtype).replace('torch.', '')}, q "
-              f"{str(q.dtype).replace('torch.', '')}, {nsplit} splits",
+              f"{str(q.dtype).replace('torch.', '')}, {plan}",
     )
 
 
@@ -2452,6 +2535,7 @@ def phase_lm_families(dev):
     out["seamless_m4t_large_v2"], e = family_seamless(dev)
     entries += e
     entries.append(measure_wide_attention(dev))
+    entries.append(measure_widest_attention(dev))
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"lm_families: phase {out['phase_s']:.1f} s")
     return out, entries
@@ -2782,6 +2866,328 @@ def measure_wide_attention(dev):
     return entry
 
 
+def measure_widest_attention(dev):
+    """decode_attention past head_dim 512, on `decode_attn_wide.cu` (no
+    config of either package reaches it) at WIDEST_ATTN, bf16 k and v: a
+    bf16 and an f32 query, softcap 0 and 50, each held against the plain
+    version at ATTN_TOL with its x1.01 control (the first also at key
+    ranges with NaN outside) and timed beside its bound; SDPA at softcap 0.
+    One kernels entry, the bf16 query without softcap; the other three
+    under `variants`."""
+    c = WIDEST_ATTN
+    q, k, v = attention_inputs(c["B"], c["Hq"], c["Hkv"], c["D"], c["S"], torch.bfloat16, dev,
+                               seed=1024)
+    shape = "head_dim 1,024 on the wide source (no config path)"
+    launches_of = "no path: no config of either package has head_dim > 512"
+    entry = attention_entry("decode_attention.d1024", q, k, v, c["S"],
+                            ((0, c["S"] // 2 + 1), (37, c["S"] - 96)), 0, shape, launches_of)
+    entry["variants"] = {}
+    for qt, softcap in ((torch.float32, 0.0), (torch.bfloat16, 50.0), (torch.float32, 50.0)):
+        e = attention_entry("decode_attention.d1024", q.to(qt), k, v, c["S"], (), 0, shape,
+                            launches_of, softcap=softcap)
+        entry["variants"][f"q {str(qt).replace('torch.', '')}, softcap {softcap:g}"] = {
+            key: e[key] for key in ("max_abs_err", "over_limit", "control_over_limit", "ms",
+                                    "plain_ms", "bound_ms", "library_ms", "limit")}
+    log(f"decode_attention at head_dim {c['D']} (wide source): {entry['ms']:.4f} ms (bound "
+        f"{entry['bound_ms']:.4f}, SDPA {entry['library_ms']:.4f}); variants "
+        f"{ {k_: round(v_['ms'], 4) for k_, v_ in entry['variants'].items()} }")
+    del q, k, v
+    torch.cuda.empty_cache()
+    return entry
+
+
+# ------------------------------------------------------------- LM training
+
+
+def train_flops(cfg, B, S, remat):
+    """Operations of one train step (forward, backward, and with remat the
+    layers' forward again): 6 per parameter and token (the tied embedding
+    counted once, as the unembedding's product), the attention products
+    (QK^T and PV over all S x S scores, as the port computes them masked) and
+    the SSD's four products, each at 3x its forward, plus 1x for remat."""
+    T = B * S
+    P = cfg.num_params()
+    P_layers = P - cfg.vocab * cfg.d_model * (1 if cfg.tie_embeddings else 2)
+    attn = ssd = 0
+    for layer in range(cfg.n_layers):
+        if cfg.group[layer % len(cfg.group)].kind == "attn":
+            attn += 4.0 * B * S * S * cfg.n_heads * cfg.head_dim_
+        else:
+            s = cfg.ssm
+            nh, cl = s.expand * cfg.d_model // s.head_dim, min(s.chunk, S)
+            nc = S // cl
+            ssd += 2.0 * B * nc * (cl * cl * s.d_state + nh * cl * cl * s.head_dim
+                                   + 2 * nh * cl * s.head_dim * s.d_state)
+    fwd_layers = 2.0 * P_layers * T + attn + ssd
+    return 6.0 * P * T + 3 * (attn + ssd) + (fwd_layers if remat else 0.0)
+
+
+def train_full_width(name, n_steps, dev):
+    """One config at its published widths, trained n_steps on one repeated
+    batch (LM_TRAIN): every loss and grad norm finite, the last loss below
+    the first, no kernel launched; ms a step (CUDA events), tokens/s,
+    TFLOP/s against the f32 peak, peak memory."""
+    from repro_torch import configs
+    from repro_torch.data.pipeline import DataConfig, batch_at_step
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import steps, transformer
+    from repro_torch.optim.adam import AdamWConfig, init_opt_state
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = configs.get_config(name)
+    B, S = LM_TRAIN["batch"], LM_TRAIN["seq"]
+    t = time.perf_counter()
+    params = transformer.init_params(cfg, torch.Generator(device=dev).manual_seed(
+        LM_TRAIN["seed"]), torch.float32)
+    n_params = sum(p.numel() for p in params.parameters())
+    opt = AdamWConfig(lr=LM_TRAIN["lr"], warmup_steps=1, total_steps=n_steps)
+    state = init_opt_state(params, opt)
+    batch = batch_at_step(DataConfig(cfg.vocab, S, B, seed=LM_TRAIN["seed"]), 0, device=dev)
+    step_fn = steps.make_train_step(cfg, opt, remat=True)
+    sync()
+    init_s = time.perf_counter() - t
+    dispatch.reset_launches()
+    losses, norms, lrs, step_ms = [], [], [], []
+    for _ in range(n_steps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        params, state, m = step_fn(params, state, batch)
+        b.record()
+        b.synchronize()
+        step_ms.append(a.elapsed_time(b))
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        lrs.append(float(m["lr"]))
+    launches = dict(dispatch.LAUNCHES)
+    check(sum(launches.values()) == 0, f"lm_train {name}: the training path launched {launches}")
+    check(bool(np.isfinite(losses).all() and np.isfinite(norms).all()),
+          f"lm_train {name}: a loss or grad norm is not finite: {losses} {norms}")
+    check(losses[-1] < losses[0], f"lm_train {name}: the loss did not fall: {losses}")
+    flops = train_flops(cfg, B, S, remat=True)
+    p50 = float(np.percentile(step_ms, 50))
+    out = dict(config=name, params=n_params, dtype="float32", batch=B, seq=S, steps=n_steps,
+               remat=True, init_s=init_s, losses=losses, grad_norms=norms, lrs=lrs,
+               step_ms=step_ms, step_ms_p50=p50, tokens_per_s=B * S / (p50 / 1e3),
+               flops_per_step=flops, tflops_per_s=flops / (p50 / 1e3) / 1e12,
+               floor_ms=1e3 * flops / F32_FLOPS, launches=launches,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    log(f"lm_train {name}: {n_params / 1e9:.3f} B f32 parameters, losses "
+        f"{[round(x, 4) for x in losses]}, {p50:.1f} ms a step at p50 (floor "
+        f"{out['floor_ms']:.0f} ms), {out['tflops_per_s']:.1f} TFLOP/s, peak "
+        f"{out['peak_gb']:.1f} GB")
+    del params, state, batch, step_fn
+    torch.cuda.empty_cache()
+    return out
+
+
+class MarginSpy:
+    """The least top-k margin (the k-th router logit less the next) of every
+    MoE router call while entered (`models.moe.route`, patched)."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self.least, self._real = float("inf"), moe.route
+
+        def spy(cfg, router, xf):
+            out = self._real(cfg, router, xf)
+            top = torch.topk(out[0].detach(), cfg.moe.top_k + 1, dim=-1).values
+            self.least = min(self.least, float((top[:, -2] - top[:, -1]).min()))
+            return out
+
+        moe.route = spy
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+
+        moe.route = self._real
+
+
+def train_reduced_card_vs_cpu(dev):
+    """Each of the ten configs at reduced_config: one train step (remat) on
+    the card against the same step on the CPU, the same weights (drawn on
+    the CPU, zero norms and biases replaced by seeded noise) and batch (the
+    pipeline's, with seeded embeds for a frontend config and encoder frames
+    for the encoder-decoder): the loss and the grad norm within their
+    limits; no kernel launched on the card."""
+    import copy
+
+    from repro_torch import configs
+    from repro_torch.data.pipeline import DataConfig, batch_at_step
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import steps, transformer
+    from repro_torch.optim.adam import AdamWConfig, init_opt_state
+
+    c = TRAIN_REDUCED
+    opt = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=10)
+    out, launches = {}, {}
+    for name in configs.ARCHS:
+        cfg = configs.reduced_config(name)
+        base = transformer.init_params(cfg, torch.Generator().manual_seed(0), torch.float32)
+        gen = torch.Generator().manual_seed(1)
+        for t in base.parameters():
+            if not t.any():
+                t.data = 0.1 * torch.randn(t.shape, generator=gen)
+
+        def batch_of(seed):
+            b = batch_at_step(DataConfig(cfg.vocab, c["seq"], c["batch"], seed=seed), 0,
+                              device="cpu")
+            g = torch.Generator().manual_seed(seed + 100)
+            if cfg.frontend:
+                b["embeds"] = torch.randn((c["batch"], c["seq"], cfg.d_model), generator=g)
+                del b["tokens"]
+            if cfg.is_encdec:
+                b["enc_embeds"] = torch.randn((c["batch"], c["enc_len"], cfg.d_model),
+                                              generator=g)
+            return b
+
+        def one_step(device, batch):
+            params = copy.deepcopy(base).to(device)
+            state = init_opt_state(params, opt)
+            fn = steps.make_train_step(cfg, opt, remat=True)
+            params, state, m = fn(params, state, {k: v.to(device) for k, v in batch.items()})
+            return float(m["loss"]), float(m["grad_norm"]), params
+
+        for seed in range(8):
+            batch = batch_of(seed)
+            with MarginSpy() as spy:
+                want = one_step("cpu", batch)
+            if cfg.moe is None or spy.least > TRAIN_ROUTE_MARGIN:
+                break
+        check(cfg.moe is None or spy.least > TRAIN_ROUTE_MARGIN,
+              f"lm_train {name}: no data seed with router margins above {TRAIN_ROUTE_MARGIN}")
+        dispatch.reset_launches()
+        got = one_step(dev, batch)
+        sync()
+        for k, v in dispatch.LAUNCHES.items():
+            launches[k] = launches.get(k, 0) + v
+        loss_err = abs(got[0] - want[0])
+        norm_err = abs(got[1] - want[1]) / want[1]
+        param_err = max(float((a.detach().cpu() - b.detach()).abs().max())
+                        for a, b in zip(got[2].parameters(), want[2].parameters()))
+        check(loss_err <= TRAIN_CARD_LOSS_ATOL and norm_err <= TRAIN_CARD_NORM_RTOL,
+              f"lm_train {name}: card against CPU: loss {got[0]} vs {want[0]}, grad norm "
+              f"{got[1]} vs {want[1]}")
+        out[name] = dict(data_seed=seed, loss=got[0], loss_cpu=want[0], loss_err=loss_err,
+                         grad_norm=got[1], grad_norm_cpu=want[1], grad_norm_rel_err=norm_err,
+                         max_abs_param_err=param_err,
+                         route_margin=None if cfg.moe is None else spy.least)
+    check(sum(launches.values()) == 0, f"lm_train: the reduced configs launched {launches}")
+    log(f"lm_train: ten reduced configs, card == CPU (max loss err "
+        f"{max(r['loss_err'] for r in out.values()):.2e}, max grad-norm rel err "
+        f"{max(r['grad_norm_rel_err'] for r in out.values()):.2e})")
+    return out, launches
+
+
+def start_train_resume(work: Path):
+    """Start the resume check (module docstring, phase 8) in a process of
+    its own (--resume-child), with CUBLAS_WORKSPACE_CONFIG set for it
+    alone; `finish_train_resume` reads its result."""
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=RESUME_CUBLAS, PYTHONPATH=str(ROOT / "src"))
+    log_file = open(work / "child.log", "w")
+    proc = subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--resume-child",
+                             str(work)], env=env, stdout=log_file, stderr=subprocess.STDOUT)
+    return proc, log_file, time.perf_counter()
+
+
+def finish_train_resume(started, work: Path):
+    """Wait for the resume child; its losses of steps 3-5 and its step-6
+    checkpoint (parameters, both states, the step) equal the uninterrupted
+    run's, bit for bit."""
+    proc, log_file, t = started
+    try:
+        rc = proc.wait(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log_file.close()
+    child_log = (work / "child.log").read_text()
+    check(rc == 0 and (work / "resume.json").exists(),
+          f"lm_train resume: the child exited {rc}:\n{child_log[-4000:]}")
+    rec = json.loads((work / "resume.json").read_text())
+    check(rec["resumed_losses"] == rec["losses"][3:],
+          f"lm_train resume: losses {rec['resumed_losses']} differ from {rec['losses'][3:]}")
+    check(not rec["differ"], f"lm_train resume: leaves differ at step 6: {rec['differ'][:5]}")
+    check(rec["step"] == 6, "lm_train resume: the step-6 checkpoint's step")
+    rec["wall_s"] = time.perf_counter() - t
+    log(f"lm_train resume: preset small, 6 steps == 3 + resumed 3, bit for bit "
+        f"({rec['leaves']} leaves, losses {[round(x, 4) for x in rec['losses']]}); ops without "
+        f"a deterministic CUDA version: {rec['nondeterministic_ops'] or 'none'}; "
+        f"{rec['wall_s']:.1f} s in its own process")
+    return rec
+
+
+def resume_child(work: Path) -> int:
+    """The resume check's process: the launcher on the card in
+    deterministic mode (warnings on, each op without a deterministic CUDA
+    version named), TRAIN_RESUME once through with checkpoints at steps 3
+    and 6, and once resumed from a directory holding only the step-3
+    checkpoint; writes what it found to resume.json."""
+    import contextlib
+    import shutil
+    import warnings
+
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.launch import train
+    from repro_torch.models import transformer
+    from repro_torch.optim.adam import AdamWConfig, init_opt_state
+
+    check(os.environ.get("CUBLAS_WORKSPACE_CONFIG") == RESUME_CUBLAS,
+          "the resume child needs CUBLAS_WORKSPACE_CONFIG set before cuBLAS starts")
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    with warnings.catch_warnings(record=True) as caught, contextlib.redirect_stdout(sys.stderr):
+        warnings.simplefilter("always")
+        a, b = work / "a", work / "b"
+        full = train.main(TRAIN_RESUME + ["--ckpt-dir", str(a)])
+        b.mkdir()
+        shutil.copytree(a / "step_00000003", b / "step_00000003")
+        resumed = train.main(TRAIN_RESUME + ["--ckpt-dir", str(b), "--resume"])
+        cfg = train.preset_config("small")
+        # The checkpoints compared on the host, leaf by leaf.
+        like_params = transformer.init_params(cfg, torch.Generator(), torch.float32)
+        like = train.train_state(like_params, init_opt_state(like_params, AdamWConfig()))
+        got, want = ckpt.restore(b, 6, like), ckpt.restore(a, 6, like)
+        leaves = list(zip(ckpt._flatten_with_paths(got), ckpt._flatten_with_paths(want)))
+        differ = [ka for (ka, x), (_, y) in leaves if not torch.equal(x, y)]
+    nondet = sorted({str(w.message).split("\n")[0] for w in caught
+                     if "deterministic" in str(w.message)})
+    (work / "resume.json").write_text(json.dumps(dict(
+        losses=full, resumed_losses=resumed, leaves=len(leaves), differ=differ,
+        step=int(got["opt"]["step"]), nondeterministic_ops=nondet)))
+    return 0
+
+
+def phase_lm_train(dev):
+    """The LM training path on the card (module docstring, phase 8).
+    Returns its record; the launch counts of each run are zeroed just before
+    it and read just after."""
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated() / 1e9
+    log(f"lm_train: {left:.2f} GB still allocated from the earlier phases")
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        # The resume child (a 12 M-parameter model, ~10 s with its start)
+        # runs beside llama's first step, which the step's p50 leaves out.
+        started = start_train_resume(Path(tmp))
+        for name, n_steps in LM_TRAIN_MODELS:
+            out[name] = train_full_width(name, n_steps, dev)
+        out["reduced"], reduced_launches = train_reduced_card_vs_cpu(dev)
+        out["resume"] = finish_train_resume(started, Path(tmp))
+    launches = dict(reduced_launches)
+    for name, _ in LM_TRAIN_MODELS:
+        for k, v in out[name]["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    out["launches"] = launches
+    out["allocated_at_start_gb"] = left
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"lm_train: phase {out['phase_s']:.1f} s")
+    return out
+
+
 # -------------------------------------------------------------------- main
 
 
@@ -2791,9 +3197,12 @@ def main(argv=None) -> int:
                     help="log2 of the full-width edge count (V stays 2^22)")
     ap.add_argument("--dist-child", type=Path, default=None,
                     help=argparse.SUPPRESS)  # one rank of the distributed phase's world of 2
+    ap.add_argument("--resume-child", type=Path, default=None,
+                    help=argparse.SUPPRESS)  # the lm_train phase's resume check
     ap.add_argument("--lm-only", action="store_true",
-                    help="run the build and the two LM serving phases alone (a quick check "
-                         "of those paths; the full run is the script without flags)")
+                    help="run the build and the three LM phases (serving, families, "
+                         "training) alone (a quick check of those paths; the full run is the "
+                         "script without flags)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on the card",
@@ -2804,6 +3213,8 @@ def main(argv=None) -> int:
 
     if args.dist_child is not None:
         return dist_child(args.dist_child)
+    if args.resume_child is not None:
+        return resume_child(args.resume_child)
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -2835,10 +3246,14 @@ def main(argv=None) -> int:
         kernel = e["name"].split(".")[0]
         e["lm_families_launches"] = {name: rec["launches"].get(kernel, 0)
                                      for name, rec in families.items() if name != "phase_s"}
+    lm_train = phase_lm_train(dev)
+    for e in kernels:  # the training path's: 0 for every kernel (checked in the phase)
+        e["lm_train_launches"] = lm_train["launches"].get(e["name"].split(".")[0], 0)
     total = time.perf_counter() - t0
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(dict(
-        record, lm=lm, lm_families=families, kernels=kernels, total_s=total), indent=1))
+        record, lm=lm, lm_families=families, lm_train=lm_train, kernels=kernels, total_s=total),
+        indent=1))
     log(f"all phases passed in {total:.1f} s")
 
     print(smi)
@@ -2850,6 +3265,7 @@ def main(argv=None) -> int:
             "capture_s")}}))
     print(json.dumps({"lm_serve": lm_line(lm, smi)}))
     print(json.dumps({"lm_families": families_line(families, smi)}))
+    print(json.dumps({"lm_train": train_line(lm_train, smi, total)}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                               "kind": torch.cuda.get_device_name(0),
@@ -2865,6 +3281,23 @@ def lm_line(lm, smi):
             "phase_s")
     return dict({k: lm[k] for k in keys}, launches=lm["launches"].get("decode_attention", 0),
                 card=smi)
+
+
+def train_line(rec, smi, total):
+    """The {"lm_train": ...} stdout line: each full-width model's losses and
+    speed, the reduced configs' largest card-against-CPU errors, the resume,
+    the launches, the phase's wall and the script's."""
+    keys = ("params", "batch", "seq", "steps", "losses", "grad_norms", "step_ms_p50",
+            "tokens_per_s", "tflops_per_s", "floor_ms", "peak_gb")
+    out = {name: {k: rec[name][k] for k in keys} for name, _ in LM_TRAIN_MODELS}
+    red = rec["reduced"]
+    out["reduced_card_vs_cpu"] = dict(
+        configs=len(red), max_loss_err=max(r["loss_err"] for r in red.values()),
+        max_grad_norm_rel_err=max(r["grad_norm_rel_err"] for r in red.values()),
+        loss_atol=TRAIN_CARD_LOSS_ATOL, grad_norm_rtol=TRAIN_CARD_NORM_RTOL)
+    out["resume_bit_for_bit"] = dict(leaves=rec["resume"]["leaves"],
+                                     nondeterministic_ops=rec["resume"]["nondeterministic_ops"])
+    return dict(out, launches=rec["launches"], phase_s=rec["phase_s"], total_s=total, card=smi)
 
 
 def families_line(families, smi):

@@ -169,3 +169,50 @@ def lm_params_from_numpy(cfg, params: dict, *, device=None):
         for layer, mod in enumerate(out.enc_layers):
             put_layer(mod, params["enc_groups"]["layer_0"], layer)
     return out
+
+
+def _leaf_numpy(t: torch.Tensor) -> np.ndarray:
+    """One parameter tensor → a host numpy array of the same dtype, bit for
+    bit (bf16 as ml_dtypes' bfloat16, the type JAX hands back)."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes
+
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16).copy()
+    return t.numpy().copy()
+
+
+def lm_params_to_numpy(cfg, params) -> dict:
+    """The inverse of `lm_params_from_numpy`: the port's `LM` → the
+    reference's parameter pytree of numpy arrays, `groups` and
+    `enc_groups` stacked along their group axis (layer l is group
+    l // len(cfg.group), slot l % len(cfg.group)), each leaf in its own
+    dtype, bit for bit."""
+
+    def nest(pairs):
+        out: dict = {}
+        for name, t in pairs:
+            *path, leaf = name.split(".")
+            node = out
+            for key in path:
+                node = node.setdefault(key, {})
+            node[leaf] = t
+        return out
+
+    def stacked(layers, n):
+        groups = {}
+        for slot in range(n):
+            mods = [layers[l] for l in range(slot, len(layers), n)]
+            names = [name for name, _ in mods[0].named_parameters()]
+            leaves = [(name, np.stack([_leaf_numpy(m.get_parameter(name)) for m in mods]))
+                      for name in names]
+            groups[f"layer_{slot}"] = nest(leaves)
+        return groups
+
+    out = {name: _leaf_numpy(getattr(params, name))
+           for name in ("embed", "final_norm") + (() if cfg.tie_embeddings else ("unembed",))}
+    out["groups"] = stacked(params.layers, len(cfg.group))
+    if cfg.is_encdec:
+        out["enc_groups"] = stacked(params.enc_layers, 1)
+        out["enc_final_norm"] = _leaf_numpy(params.enc_final_norm)
+    return out

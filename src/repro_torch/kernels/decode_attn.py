@@ -13,13 +13,15 @@ are q·k/√D, capped as softcap·tanh(s/softcap) when softcap is non-zero; the
 softmax and the weighted sum of v are taken in f32, and the result
 [B, Hq, D] is cast to q's dtype.
 
-Dispatch: a CPU tensor runs the plain version; a CUDA tensor launches the
-kernel (head_dim 1 to 512: a width outside HEAD_DIMS runs on the next one
-up, its rows zero-padded in shared memory; above 512 it raises a
-ValueError that names the limit), and anything else raises. The kernel
-splits S across CTAs (`split_count`) and merges the splits' partial states
-in a second launch on the same stream; each call counts once in `LAUNCHES`
-as "decode_attention".
+Dispatch: a CPU tensor runs the plain version; a CUDA tensor launches a
+kernel, and anything else raises. head_dim 1 to 512 runs on
+`csrc/decode_attn.cu` (a width outside HEAD_DIMS runs on the next one up,
+its rows zero-padded in shared memory), which splits S across CTAs
+(`split_count`) and merges the splits' partial states in a second launch
+on the same stream. A wider head_dim runs on `csrc/decode_attn_wide.cu`
+(`kernel_source`): scores, softmax and output in three simple launches
+through an f32 workspace [B, Hq, end - start]; no size is refused. Each
+call counts once in `LAUNCHES` as "decode_attention".
 """
 from __future__ import annotations
 
@@ -45,12 +47,20 @@ WAVE_CTAS = 2 * 3  # ... and the grid fills at least two waves of three CTAs an 
 MAX_SPLITS = 1024
 
 
+def kernel_source(D: int) -> str:
+    """The CUDA source a head_dim D runs on: `decode_attn` (the split-S
+    flash kernel) up to HEAD_DIMS[-1], `decode_attn_wide` above."""
+    return "decode_attn" if D <= HEAD_DIMS[-1] else "decode_attn_wide"
+
+
 def padded_dim(D: int) -> int:
-    """The built width a head_dim D runs at: the least of HEAD_DIMS >= D."""
+    """The built width of `decode_attn.cu` a head_dim D runs at: the least
+    of HEAD_DIMS >= D (a wider D runs on `decode_attn_wide.cu`)."""
     for width in HEAD_DIMS:
         if D <= width:
             return width
-    raise ValueError(f"the CUDA kernel takes head_dim up to {HEAD_DIMS[-1]}, got {D}")
+    raise ValueError(f"decode_attn.cu's builds take head_dim up to {HEAD_DIMS[-1]}, got {D}; "
+                     f"wider rows run on decode_attn_wide.cu")
 
 
 def tile_keys(D: int, dtype: torch.dtype) -> int:
@@ -121,8 +131,9 @@ def decode_attention(q, k, v, *, softcap: float = 0.0, start: int = 0, end=None)
         return decode_attention_plain(q, k[:, start:end], v[:, start:end], softcap=softcap)
     if dev.type != "cuda":
         raise ValueError(f"decode_attention runs on CPU or CUDA tensors, got {dev}")
-    padded_dim(D)  # raises above 512
     G = Hq // Hkv
+    if kernel_source(D) == "decode_attn_wide":
+        return _decode_attention_wide(q, k, v, softcap, start, end)
     nsplit = split_count(B, end - start, Hkv, G, _sm_count(dev), tile_keys(D, k.dtype))
     workspace = c_function("decode_attn", "decode_attn_workspace", [ctypes.c_int] * 5,
                            ctypes.c_longlong)(B, Hkv, G, D, nsplit)
@@ -135,5 +146,25 @@ def decode_attention(q, k, v, *, softcap: float = 0.0, start: int = 0, end=None)
              ws.numel(), B, S, start, end, Hkv, G, D, DTYPE_CODES[q.dtype, k.dtype],
              1.0 / math.sqrt(D), float(softcap), nsplit, cuda_stream_handle())
     check_launch("decode_attn", err)
+    LAUNCHES["decode_attention"] += 1
+    return out
+
+
+def _decode_attention_wide(q, k, v, softcap, start, end):
+    """The CUDA launch of `csrc/decode_attn_wide.cu` (head_dim above 512),
+    on checked arguments."""
+    (B, Hq, D), (S, Hkv) = q.shape, k.shape[1:3]
+    G = Hq // Hkv
+    workspace = c_function("decode_attn_wide", "decode_attn_wide_workspace", [ctypes.c_int] * 4,
+                           ctypes.c_longlong)(B, Hkv, G, end - start)
+    ws = torch.empty((workspace,), dtype=torch.float32, device=q.device)
+    out = torch.empty_like(q)
+    fn = c_function("decode_attn_wide", "decode_attn_wide_launch",
+                    [ctypes.c_void_p] * 5 + [ctypes.c_longlong] + [ctypes.c_int] * 8
+                    + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), ws.data_ptr(),
+             ws.numel(), B, S, start, end, Hkv, G, D, DTYPE_CODES[q.dtype, k.dtype],
+             1.0 / math.sqrt(D), float(softcap), cuda_stream_handle())
+    check_launch("decode_attn_wide", err)
     LAUNCHES["decode_attention"] += 1
     return out

@@ -26,7 +26,8 @@ from typing import Optional
 
 import torch
 
-KERNEL_NAMES = ("ebg_commit", "bsp_superstep", "segment_reduce", "ebg_membership", "decode_attn")
+KERNEL_NAMES = ("ebg_commit", "bsp_superstep", "segment_reduce", "ebg_membership", "decode_attn",
+                "decode_attn_wide")
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = (

@@ -1,6 +1,7 @@
 """repro_torch.launch — command-line drivers and device meshes of the port
 (port of `repro.launch`): `graph_serve` replays a synthetic query trace
 through the graph-query server; `serve` prefills and greedily decodes a
-batch of prompts on an LM (`train` holds the presets it shares); `mesh`
-makes the `torch.distributed` device meshes the distributed engine runs
-on."""
+batch of prompts on an LM; `train` trains an LM on the synthetic token
+pipeline with checkpoint/restart (and holds the presets both share);
+`mesh` makes the `torch.distributed` device meshes the distributed engine
+runs on."""

@@ -3,7 +3,6 @@
 RoPE, attention, MLP), `moe` (the mixture-of-experts FFN and its
 expert-parallel dispatch), `ssm` (the mamba2 SSD mixer), `transformer`
 (the decoder-only, hybrid and encoder-decoder stacks: parameters,
-forward, the encoder, caches) and `steps` (the prefill and decode steps).
-Every config of the registry serves; the training step comes with a
-later slice.
+forward, the encoder, caches) and `steps` (the train, prefill and decode
+steps). Every config of the registry serves and trains.
 """

@@ -28,6 +28,17 @@ axis): tokens are replicated, each rank holds E/w experts
 and the partial outputs [T, d] are added by one `all_reduce` (the
 reference's `psum`). With no group it is `moe_ffn`, as the reference falls
 back off-mesh.
+
+Under autograd `moe_ffn_ep` differentiates as the reference's shard_map
+does: the tokens and the router are replicated, so each rank's gradient
+of them is a partial that the ranks sum (`_SumGrads`: identity forward,
+an `all_reduce` of the gradient backward), and the output is replicated,
+so the `all_reduce` that sums the partial outputs hands each rank the
+output's gradient unchanged (`_SumOutputs`). Every rank then holds the
+single-process gradients: the router's, the input's and its own
+experts'. (A sum-backward `all_reduce` on the output alone would scale
+the experts' gradients by w and leave the router's and the input's
+partial.)
 """
 from __future__ import annotations
 
@@ -149,6 +160,36 @@ def _moe_body(cfg: ModelConfig, xb: torch.Tensor, router, wg, wi, wo, *,
     return _dispatch_combine(xb, gates, safe_e, order, keep, r, k, cap, wg, wi, wo)
 
 
+class _SumGrads(torch.autograd.Function):
+    """Identity forward; the gradient summed over the group's ranks."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous().clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+class _SumOutputs(torch.autograd.Function):
+    """The partial outputs summed over the group's ranks, in place; the
+    replicated output's gradient passed to each rank's partial unchanged."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.mark_dirty(t)
+        dist.all_reduce(t, group=group)
+        return t
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
 def moe_ffn_ep(cfg: ModelConfig, p: MoE, x: torch.Tensor, *, group=None) -> torch.Tensor:
     """Expert-parallel `moe_ffn` over the ranks of `group` (a
     `torch.distributed` process group; None: `moe_ffn` on this process).
@@ -163,9 +204,9 @@ def moe_ffn_ep(cfg: ModelConfig, p: MoE, x: torch.Tensor, *, group=None) -> torc
         raise ValueError(f"moe_ffn_ep: {E} experts over {w} ranks need E/w = {E // w} experts "
                          f"a rank, got {p.w_gate.shape[0]}")
     B, S, d = x.shape
-    y = _moe_body(cfg, x.reshape(B * S, d), p.router, p.w_gate, p.w_in, p.w_out, rank=r)
-    dist.all_reduce(y, group=group)
-    return y.reshape(B, S, d)
+    xb = _SumGrads.apply(x.reshape(B * S, d), group)
+    y = _moe_body(cfg, xb, _SumGrads.apply(p.router, group), p.w_gate, p.w_in, p.w_out, rank=r)
+    return _SumOutputs.apply(y, group).reshape(B, S, d)
 
 
 def shard_experts(cfg: ModelConfig, p: MoE, rank: int, world: int) -> MoE:

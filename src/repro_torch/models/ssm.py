@@ -114,8 +114,12 @@ def ssd_chunked(x, dt, A, Bm, Cm, chunk: int):
     # 1) within-chunk (diagonal blocks): the attention-like quadratic term,
     #    scores · L · dt over j, then the product with x over j.
     scores = Cr @ Br.transpose(-1, -2)  # [b, nc, cl(i), cl(j)]
-    w = torch.exp(_segsum(a_h))  # L [b, nc, h, i, j], then scores · L · dt in place
-    w.mul_(scores[:, :, None]).mul_(dt_h[:, :, :, None, :])
+    w = torch.exp(_segsum(a_h))  # L [b, nc, h, i, j], then scores · L · dt
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, dt, A, Bm, Cm)):
+        # exp's backward reads its output: no product in place.
+        w = w * scores[:, :, None] * dt_h[:, :, :, None, :]
+    else:  # serving: in place, the decay matrix is the largest intermediate
+        w.mul_(scores[:, :, None]).mul_(dt_h[:, :, :, None, :])
     y_diag = w @ x_h  # [b, nc, h, i, p]
     del w
 

@@ -1,26 +1,82 @@
-"""Prefill and decode step functions (port of `repro.models.steps`):
-the units the serving loop (`repro_torch.launch.serve.generate`) calls.
+"""Train, prefill and decode step functions (port of `repro.models.steps`):
+the units the training loop (`repro_torch.launch.train`) and the serving
+loop (`repro_torch.launch.serve.generate`) call.
 
 Batch dicts:
+  train:   {tokens [B, S] | embeds [B, S, d], targets [B, S],
+            (enc_tokens | enc_embeds)}
   prefill: {tokens [B, S] | embeds [B, S, d], (enc_tokens | enc_embeds)}
            → last logits + caches
   decode:  {token [B, 1] | embed, pos, (enc_out | enc_embeds | enc_tokens)}
            → next logits + caches
 
+The train step runs the forward and the backward under autograd (with
+`remat`, each group of layers recomputed in the backward, as the
+reference's `jax.checkpoint`), then `optim.apply_updates` in place. The
+serving steps run under `torch.no_grad()` and build no autograd graph.
 An encoder-decoder's decode step takes `enc_out` computed once
 (`transformer.encode`), or recomputes it from `enc_embeds` / `enc_tokens`
-every step, as the reference's does. The reference's `lm_loss` and
-`make_train_step` come with the training slice of the port. The caches are
-written in place: a decode step returns the same cache objects it was
-given, advanced by one key.
+every step, as the reference's does. The caches are written in place: a
+decode step returns the same cache objects it was given, advanced by one
+key.
 """
 from __future__ import annotations
 
+import torch
+import torch.nn.functional as F
+
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import forward, init_caches
+from repro_torch.optim.adam import AdamWConfig, apply_updates
+
+
+def lm_loss(cfg: ModelConfig, params, batch: dict, *, remat: bool = True,
+            vocab_parallel: bool = False):
+    """Mean next-token cross entropy over [B, S]: (loss, dict(loss=loss)),
+    the loss an f32 0-d tensor. logsumexp of the f32 logits less the
+    target's logit, taken by `take_along_dim` of the f32 logits or, with
+    `vocab_parallel`, by a one-hot contraction in the logits' dtype (the
+    reference's Megatron-style branch for vocab-sharded logits)."""
+    logits, _ = forward(cfg, params, tokens=batch.get("tokens"), embeds=batch.get("embeds"),
+                        enc_tokens=batch.get("enc_tokens"), enc_embeds=batch.get("enc_embeds"),
+                        remat=remat)
+    targets = batch["targets"].long()
+    lse = torch.logsumexp(logits.float(), dim=-1)
+    if vocab_parallel:
+        onehot = F.one_hot(targets, cfg.vocab).to(logits.dtype)
+        tgt = torch.einsum("bsv,bsv->bs", logits, onehot).float()
+    else:
+        tgt = torch.take_along_dim(logits.float(), targets[..., None], dim=-1)[..., 0]
+    nll = lse - tgt
+    loss = nll.mean()
+    return loss, dict(loss=loss)
+
+
+def make_train_step(cfg: ModelConfig, opt: AdamWConfig, *, remat: bool = True,
+                    vocab_parallel: bool = False):
+    """train_step(params, opt_state, batch) → (params, opt_state,
+    dict(loss, grad_norm, lr)): one forward and backward of `lm_loss`, then
+    one AdamW update of `params` (an `LM`, updated in place; its parameters
+    get `requires_grad` and keep it). The metrics are f32 0-d tensors on
+    the device."""
+
+    def train_step(params, opt_state, batch):
+        named = list(params.named_parameters())
+        for _, p in named:
+            if not p.requires_grad:
+                p.requires_grad_(True)
+        with torch.enable_grad():
+            loss, _ = lm_loss(cfg, params, batch, remat=remat, vocab_parallel=vocab_parallel)
+            grads = torch.autograd.grad(loss, [p for _, p in named], allow_unused=True)
+        params, opt_state, om = apply_updates(params, {n: g for (n, _), g in zip(named, grads)},
+                                              opt_state, opt)
+        return params, opt_state, dict(loss=loss.detach(), **om)
+
+    return train_step
 
 
 def make_prefill_step(cfg: ModelConfig, max_seq: int):
+    @torch.no_grad()
     def prefill_step(params, batch):
         x = batch["tokens"] if "tokens" in batch else batch["embeds"]
         caches = init_caches(cfg, x.shape[0], max_seq, device=params.embed.device)
@@ -35,6 +91,7 @@ def make_prefill_step(cfg: ModelConfig, max_seq: int):
 def make_serve_step(cfg: ModelConfig):
     """One decode step: token [B, 1] + caches → logits [B, vocab] + caches."""
 
+    @torch.no_grad()
     def serve_step(params, caches, batch):
         pos = int(batch["pos"])  # the current length of the cache
         logits, caches = forward(cfg, params, tokens=batch.get("token"),

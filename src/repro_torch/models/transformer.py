@@ -22,6 +22,17 @@ the call's own tokens, with RoPE, as the reference computes it.
 
 Caches (`init_caches`): one a layer, a `layers.KVCache` for an attention
 mixer and an `ssm.SSMCache` for an SSM mixer, written in place.
+
+`forward` and `encode` are differentiable: the serving callers
+(`steps.make_prefill_step`, `steps.make_serve_step`, `launch.serve.
+generate`) run them under `torch.no_grad()`, the training step under
+autograd. With `remat` (the reference's `jax.checkpoint` of each scanned
+group) each run of `len(cfg.group)` layers is one
+`torch.utils.checkpoint` segment: its activations are recomputed in the
+backward pass, not kept. A forward with caches, with grad off, or with
+nothing that requires grad, runs no checkpoint. The parameters are built
+with `requires_grad=False` (the serving default); the training step turns
+it on for the ones it trains.
 """
 from __future__ import annotations
 
@@ -29,6 +40,7 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
@@ -138,9 +150,31 @@ def _apply_layer(cfg, spec: LayerSpec, p: Layer, x, positions, *, causal, enc_ou
     return x
 
 
-@torch.no_grad()
+def _run_stack(cfg, layers, specs, x, positions, *, causal, enc_out=None, caches=None,
+               remat=False):
+    """The layers in order, layer l with spec specs[l % len(specs)]. With
+    `remat` (grad on, something to differentiate, no caches) each run of
+    len(specs) layers, one of the reference's scanned groups, is a
+    checkpoint segment."""
+    n = len(specs)
+
+    def group(g, xg):
+        for layer in range(g * n, min((g + 1) * n, len(layers))):
+            xg = _apply_layer(cfg, specs[layer % n], layers[layer], xg, positions,
+                              causal=causal, enc_out=enc_out,
+                              cache=None if caches is None else caches[layer])
+        return xg
+
+    segments = (remat and caches is None and torch.is_grad_enabled() and
+                (x.requires_grad or any(t.requires_grad for t in layers.parameters())))
+    for g in range(-(-len(layers) // n)):
+        x = checkpoint(group, g, x, use_reentrant=False) if segments else group(g, x)
+    return x
+
+
 def encode(cfg: ModelConfig, params: LM, *, enc_tokens: Optional[torch.Tensor] = None,
-           enc_embeds: Optional[torch.Tensor] = None) -> Optional[torch.Tensor]:
+           enc_embeds: Optional[torch.Tensor] = None,
+           remat: bool = True) -> Optional[torch.Tensor]:
     """The encoder of an encoder-decoder config: enc_out [B, Se, d] from
     `enc_embeds` [B, Se, d] or `enc_tokens` [B, Se] (embedded), None when
     neither is given. Not causal; positions 0..Se-1."""
@@ -150,13 +184,11 @@ def encode(cfg: ModelConfig, params: LM, *, enc_tokens: Optional[torch.Tensor] =
         return None
     B, Se = enc_embeds.shape[:2]
     enc_pos = torch.arange(Se, device=enc_embeds.device)[None, :].expand(B, Se)
-    x = enc_embeds
-    for p in params.enc_layers:
-        x = _apply_layer(cfg, ENC_SPEC, p, x, enc_pos, causal=False)
+    x = _run_stack(cfg, params.enc_layers, (ENC_SPEC,), enc_embeds, enc_pos, causal=False,
+                   remat=remat)
     return L.rms_norm(x, params.enc_final_norm, cfg.norm_eps)
 
 
-@torch.no_grad()
 def forward(
     cfg: ModelConfig,
     params: LM,
@@ -169,6 +201,7 @@ def forward(
     enc_out: Optional[torch.Tensor] = None,  # a precomputed encoder output (decode)
     caches: Optional[list] = None,  # init_caches(...), written in place
     cache_pos: Optional[int] = None,
+    remat: bool = True,
 ):
     """Returns (logits [B, S, vocab], caches)."""
     x = params.embed[tokens] if embeds is None else embeds
@@ -180,10 +213,9 @@ def forward(
         if cfg.mrope_sections is not None:
             positions = positions[None].expand(3, B, S)
     if cfg.is_encdec and enc_out is None:
-        enc_out = encode(cfg, params, enc_tokens=enc_tokens, enc_embeds=enc_embeds)
-    for layer, p in enumerate(params.layers):
-        x = _apply_layer(cfg, cfg.group[layer % len(cfg.group)], p, x, positions, causal=True,
-                         enc_out=enc_out, cache=None if caches is None else caches[layer])
+        enc_out = encode(cfg, params, enc_tokens=enc_tokens, enc_embeds=enc_embeds, remat=remat)
+    x = _run_stack(cfg, params.layers, cfg.group, x, positions, causal=True, enc_out=enc_out,
+                   caches=caches, remat=remat)
     x = L.rms_norm(x, params.final_norm, cfg.norm_eps)
     unembed = params.embed.T if cfg.tie_embeddings else params.unembed
     logits = x @ unembed

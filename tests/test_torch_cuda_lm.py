@@ -302,8 +302,8 @@ def test_cuda_decode_attention_head_dims_to_512(cuda_device, D, dtypes, softcap)
     bf16, 16 in f32, chosen from the card's shared memory), with 1, 4 and 8
     query rows a kv head: the whole cache, one key, and key ranges of a
     cache whose keys outside the range are NaN, one long enough to split;
-    against the plain version with its x1.01 control. Above 512 the
-    wrapper raises a ValueError naming the limit."""
+    against the plain version with its x1.01 control. Past 512 the call
+    runs on the wide source (`decode_attn_wide.cu`) and is not refused."""
     from repro_torch.kernels import decode_attn as pt_attn
     from repro_torch.kernels import ops as pt_ops
 
@@ -331,7 +331,54 @@ def test_cuda_decode_attention_head_dims_to_512(cuda_device, D, dtypes, softcap)
             got = got.cpu().float()
             torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
             assert not torch.allclose(got * 1.01, want, rtol=rtol, atol=atol)
-    q = torch.zeros((1, 2, 513), dtype=qt, device=cuda_device)
-    k = torch.zeros((1, 4, 2, 513), dtype=kt, device=cuda_device)
-    with pytest.raises(ValueError, match="up to 512"):
-        pt_ops.decode_attention(q, k, k)
+    # Past 512 nothing is refused: the call runs on the wide source.
+    q = torch.randn((1, 2, 513), generator=gen).to(qt)
+    k = torch.randn((1, 4, 2, 513), generator=gen).to(kt)
+    before = LAUNCHES["decode_attention"]
+    got = pt_ops.decode_attention(q.to(cuda_device), k.to(cuda_device), k.to(cuda_device),
+                                  softcap=softcap)
+    torch.cuda.synchronize()
+    assert LAUNCHES["decode_attention"] == before + 1
+    torch.testing.assert_close(got.cpu().float(),
+                               pt_attn.decode_attention_plain(q, k, k, softcap=softcap).float(),
+                               rtol=rtol, atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [513, 640, 1024])
+@pytest.mark.parametrize("dtypes", list(WIDE))
+@pytest.mark.parametrize("softcap", [0.0, 50.0])
+def test_cuda_decode_attention_wide_head_dims(cuda_device, D, dtypes, softcap):
+    """head_dim above 512 on `decode_attn_wide.cu` (scores, softmax, output
+    through an f32 workspace), with 1, 4 and 8 query rows a kv head: the
+    whole cache, one key, and key ranges of a cache whose keys outside the
+    range are NaN; against the plain version within the split-S builds'
+    limits, with the x1.01 control; one launch counted a call."""
+    from repro_torch.kernels import decode_attn as pt_attn
+    from repro_torch.kernels import ops as pt_ops
+
+    qt, kt = WIDE[dtypes]
+    rtol, atol = ATTN_TOL[qt]
+    gen = torch.Generator().manual_seed(D)
+    Hkv, S_max = 2, 700
+    assert pt_attn.kernel_source(D) == "decode_attn_wide"
+    for B, G in ((1, 1), (3, 4), (2, 8)):
+        q = torch.randn((B, Hkv * G, D), generator=gen).to(qt)
+        k, v = (torch.randn((B, S_max, Hkv, D), generator=gen).to(kt) for _ in range(2))
+        for start, end in ((0, S_max), (0, 1), (5, 77), (100, S_max - 1)):
+            kd, vd = k.clone(), v.clone()
+            for t in (kd, vd):
+                t[:, :start] = float("nan")
+                t[:, end:] = float("nan")
+            want = pt_attn.decode_attention_plain(q, k[:, start:end], v[:, start:end],
+                                                  softcap=softcap).float()
+            before = LAUNCHES["decode_attention"]
+            got = pt_ops.decode_attention(q.to(cuda_device), kd.to(cuda_device),
+                                          vd.to(cuda_device), softcap=softcap, start=start,
+                                          end=end)
+            torch.cuda.synchronize()
+            assert LAUNCHES["decode_attention"] == before + 1
+            assert got.dtype == qt and got.shape == q.shape
+            got = got.cpu().float()
+            torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
+            assert not torch.allclose(got * 1.01, want, rtol=rtol, atol=atol)

@@ -234,6 +234,16 @@ def test_decode_attention_softcap_matches_reference(dtype, impl):
     _decode_both(2, 8, 4, 64, 512, 256, dtype, impl, 30.0, 0)
 
 
+@pytest.mark.parametrize("D", [513, 640, 1024])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("softcap", [0.0, 30.0])
+def test_decode_attention_wide_head_dims_match_reference(D, dtype, softcap):
+    """head_dim above 512 (the CUDA wide source's range) against the
+    reference's `impl="ref"` path; no size is refused."""
+    assert pt_attn.kernel_source(D) == "decode_attn_wide"
+    _decode_both(2, 8, 2, D, 96, 512, dtype, "ref", softcap, D)
+
+
 def test_decode_attention_checks_its_arguments():
     q = torch.zeros((1, 6, 32))
     k = torch.zeros((1, 16, 4, 32))

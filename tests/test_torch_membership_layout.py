@@ -104,15 +104,20 @@ def test_decode_split_count(B, S, Hkv, G, D, dtype):
 
 
 def test_decode_padded_widths_reach_512():
-    """The CUDA kernel's builds: any head_dim 1-512 runs on the least built
-    width at or above it (rows of 2 KB, f32 at 512, in tiles of 16 keys);
-    above 512 the wrapper refuses it with a ValueError that names the
-    limit."""
+    """The CUDA kernels' routing: any head_dim 1-512 runs on the least built
+    width of `decode_attn.cu` at or above it (rows of 2 KB, f32 at 512, in
+    tiles of 16 keys); above 512 it runs on `decode_attn_wide.cu`, so no
+    head_dim is refused (the split-S builds' width rule names the wide
+    source past its last width)."""
     assert pt_attn.HEAD_DIMS[-1] == 512
     for D, want in ((1, 32), (256, 256), (257, 512), (320, 512), (384, 512), (512, 512)):
         assert pt_attn.padded_dim(D) == want
+        assert pt_attn.kernel_source(D) == "decode_attn"
+    for D in (513, 640, 1024, 4096):
+        assert pt_attn.kernel_source(D) == "decode_attn_wide"
     assert pt_attn.tile_keys(512, torch.bfloat16) == 32
     assert pt_attn.tile_keys(300, torch.float32) == 16
     assert pt_attn.tile_keys(256, torch.float32) == 32
-    with pytest.raises(ValueError, match="head_dim up to 512, got 513"):
+    with pytest.raises(ValueError, match="head_dim up to 512, got 513; wider rows run on "
+                                         "decode_attn_wide.cu"):
         pt_attn.padded_dim(513)

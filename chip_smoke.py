@@ -5,6 +5,16 @@
 
 Phases; a failed check raises and the script exits non-zero:
 
+  0. analysis the static analyzer (repro_torch.analysis) over src/repro_torch
+              with the committed baseline (analysis_baseline_torch.json,
+              empty): no finding. KP01's parsed C entries and HS01's
+              captured roots are kept; after the last phase every C entry
+              the run loaded (dispatch._FUNCTIONS) must be one KP01
+              checked, with the argtypes (count and types) KP01 held
+              against csrc, and `_FusedLoop._chunk` must be a captured
+              root that the run did capture (engine.CAPTURES["graphs"] >
+              0; not under --lm-only, which runs no engine). Runs under
+              --lm-only too. One {"analysis": ...} stdout line.
   1. build    compile the CUDA kernels of src/repro_torch/kernels/csrc with
               nvcc (one process per source, all at once) into build/kernels/.
   2. kernels  hold each kernel against its plain PyTorch version on the card,
@@ -204,10 +214,11 @@ Phases; a failed check raises and the script exits non-zero:
               CUBLAS_WORKSPACE_CONFIG: 6 steps checkpointed at 3 and 6, and
               a run resumed from the step-3 checkpoint alone, equal bit for
               bit (losses, parameters, optimizer state). One {"lm_train":
-              ...} stdout line. `--lm-only` runs the build and phases 6-8
-              alone.
+              ...} stdout line. `--lm-only` runs the analysis, the build and
+              phases 6-8 alone.
 
-Prints the card's name and power limit, the {"serve": ...}, {"lm_serve": ...},
+Prints the card's name and power limit, the {"analysis": ...}, {"serve": ...},
+{"lm_serve": ...},
 {"lm_families": ...}, {"lm_train": ...} and {"kernels": [...]} lines, and last
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 It needs the repository around it and a CUDA card; without either it fails.
@@ -425,6 +436,59 @@ def nbytes(*ts) -> int:
 
 
 # ------------------------------------------------------------------ phases
+
+CAPTURED_ROOT = "repro_torch.graph.engine._FusedLoop._chunk"
+
+
+def phase_analysis(smi):
+    """Phase 0: the static gate over the port's source, with the committed
+    baseline; returns its record and KP01's bindings {(lib, symbol): argtypes}
+    for `check_analysis_after`."""
+    from repro_torch.analysis import all_checkers, apply_baseline, load_baseline
+    from repro_torch.analysis.checkers.host_sync import captured_roots
+    from repro_torch.analysis.checkers.kernel_parity import c_bindings
+    from repro_torch.analysis.core import collect_files, load_modules, load_resources, run_checkers
+
+    t = time.perf_counter()
+    files = collect_files([ROOT / "src" / "repro_torch"], root=ROOT)
+    modules = load_modules(files, rel_root=ROOT)
+    resources = load_resources(files, rel_root=ROOT)
+    findings = apply_baseline(run_checkers(modules, None, resources),
+                              load_baseline(ROOT / "analysis_baseline_torch.json"))
+    check(not findings, "analysis: findings in src/repro_torch:\n"
+          + "\n".join(f.render() for f in findings))
+    bindings = {}
+    for b in c_bindings(modules, resources):
+        check(b.c_arity == len(b.argtypes), f"analysis: {b.lib}.{b.symbol} unchecked")
+        bindings[b.lib, b.symbol] = b.argtypes
+    roots = captured_roots(modules)
+    check(CAPTURED_ROOT in roots, f"analysis: {CAPTURED_ROOT} is not a captured root: {roots}")
+    out = dict(files=len(files), findings=len(findings),
+               checkers=[c.code for c in all_checkers()], c_entries_checked=len(bindings),
+               captured_roots=roots, phase_s=time.perf_counter() - t, card=smi)
+    log(f"analysis: {out['files']} files, 0 findings, {len(bindings)} C entries checked, "
+        f"in {out['phase_s']:.2f} s")
+    return out, bindings
+
+
+def check_analysis_after(analysis, bindings, captured: bool):
+    """After the last phase: every C entry the run loaded was checked by
+    KP01 with the argtypes it was loaded with; with `captured`, the run
+    captured the fused loop's chunk (HS01's root) into a CUDA graph."""
+    import ctypes
+
+    from repro_torch.graph import engine
+    from repro_torch.kernels import dispatch
+
+    for (lib, symbol), fn in sorted(dispatch._FUNCTIONS.items()):
+        check((lib, symbol) in bindings, f"analysis: {lib}.{symbol} was loaded, not checked")
+        want = tuple(getattr(ctypes, name) for name in bindings[lib, symbol])
+        check(len(fn.argtypes) == len(want) and tuple(fn.argtypes) == want,
+              f"analysis: {lib}.{symbol} loaded with {fn.argtypes}, KP01 checked {want}")
+    analysis["c_entries_loaded"] = len(dispatch._FUNCTIONS)
+    analysis["graphs_captured"] = engine.CAPTURES["graphs"]
+    if captured:
+        check(engine.CAPTURES["graphs"] > 0, "analysis: the run captured no CUDA graph")
 
 
 def phase_build():
@@ -3225,6 +3289,7 @@ def main(argv=None) -> int:
     ).stdout.strip()
     log(f"card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
+    analysis, bindings = phase_analysis(smi)
     build_s = phase_build()
     record = dict(card=smi, build_s=build_s)
     kernels = []
@@ -3249,14 +3314,16 @@ def main(argv=None) -> int:
     lm_train = phase_lm_train(dev)
     for e in kernels:  # the training path's: 0 for every kernel (checked in the phase)
         e["lm_train_launches"] = lm_train["launches"].get(e["name"].split(".")[0], 0)
+    check_analysis_after(analysis, bindings, captured=not args.lm_only)
     total = time.perf_counter() - t0
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(dict(
-        record, lm=lm, lm_families=families, lm_train=lm_train, kernels=kernels, total_s=total),
-        indent=1))
+        record, analysis=analysis, lm=lm, lm_families=families, lm_train=lm_train,
+        kernels=kernels, total_s=total), indent=1))
     log(f"all phases passed in {total:.1f} s")
 
     print(smi)
+    print(json.dumps({"analysis": analysis}))
     if "full" in record:
         serve = record["full"]["serve"]
         print(json.dumps({"serve": {k: serve[k] for k in (

@@ -59,7 +59,10 @@ Phases; a failed check raises and the script exits non-zero:
               reference's; the labels equal label propagation. One line a
               partitioner on stdout: the port's Table III/IV row.
   5. full     the full-width path: R-MAT with LiveJournal's scale and skew
-              (2^22 vertices, 2^26 edges), p=32, ebg_chunked, then CC, REACH,
+              (2^22 vertices, 2^26 edges; generated on the host in a thread
+              that main starts after phase 0, beside phases 1-4), p=32,
+              ebg_chunked (then the metrics and the directed build in
+              threads beside the symmetric build), then CC, REACH,
               SSSP, BFS and PR through GraphPipeline. Kernel launch counts
               are zeroed just before and read just after; the results are
               checked against plain label-propagation / BFS / power-iteration
@@ -140,6 +143,25 @@ Phases; a failed check raises and the script exits non-zero:
               DBH and CVC partition the full-width graph on the card,
               bitwise against a numpy splitmix64 written here, with their
               edges per second and metrics.
+  5b. graph_dryrun
+              the graph engine's production dry-run (after the distributed
+              phase has destroyed its NCCL group): run_graph_dryrun at p =
+              256 (16 x 16) and p = 512 (2 x 16 x 16), each inside a fake
+              world of that many ranks in this process (rank 0; its
+              collectives counted under record_collectives, none run),
+              CC on a synthetic Friendster-scale shard on the card (8 M
+              edges and 1 M vertices a rank, 2,048-slot message tables,
+              labels below 2^24), launch counts zeroed just before each
+              run and read just after. Checked: the recorded collectives
+              equal the plan's (count and bytes, kind by kind); the bytes
+              of the rank's tensors on the card equal the plan's arg_bytes;
+              bsp_superstep.min launched; the first superstep (a second
+              lowering, one superstep) bitwise equal to the same superstep
+              with the min kernel's plain version on the card (the fake
+              exchange is deterministic). The min kernel is then held
+              against its plain version on that shard's first local stage
+              and timed a pass beside its bound. One {"graph_dryrun": ...}
+              stdout line with both records.
   6. lm       the LM serving path at full width: llama3_2_3b at its
               published widths (28 layers, d_model 3,072, 24 query heads
               over 8 KV heads), ~3.2 B bf16 parameters drawn on the card
@@ -218,7 +240,7 @@ Phases; a failed check raises and the script exits non-zero:
               phases 6-8 alone.
 
 Prints the card's name and power limit, the {"analysis": ...}, {"serve": ...},
-{"lm_serve": ...},
+{"graph_dryrun": ...}, {"lm_serve": ...},
 {"lm_families": ...}, {"lm_train": ...} and {"kernels": [...]} lines, and last
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 It needs the repository around it and a CUDA card; without either it fails.
@@ -320,6 +342,10 @@ OUT_OF_CORE = dict(shard_edges=1 << 20, block=256, tw_block=4096)
 # The sharded out-of-core layout's block on twitter_like (one launch and
 # one all_gather a block).
 DIST_SHARDED_BLOCK = 256
+# The graph engine's dry-run (phase 5b): CC at the reference's dry-run knobs
+# (launch/graph_dryrun.py: 4 supersteps, 64 inner passes) on the synthetic
+# shard of seed 0, at p = 256 and p = 512.
+GRAPH_DRYRUN = dict(program="cc", num_supersteps=4, inner_cap=64, seed=0)
 # The LM serving phase: llama3_2_3b at its published widths (src/repro_torch/
 # configs/llama3_2_3b.py), bf16 parameters drawn on the card from seed 0,
 # B = 8 prompts of 1,024 tokens from np.random.default_rng(0) as the serving
@@ -1178,27 +1204,48 @@ def oracle_pagerank(src, dst, V, iters=20, damping=0.85):
     return rank
 
 
-def phase_full(dev, log2_edges):
+def timed(fn, *a, **kw):
+    """(fn(*a, **kw), its wall in s): a stage run in a worker thread."""
+    t = time.perf_counter()
+    out = fn(*a, **kw)
+    return out, time.perf_counter() - t
+
+
+def phase_full(dev, graph):
+    """`graph`: the future of the full-width R-MAT graph and its wall (main
+    starts it in a thread after the analysis phase)."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from repro_torch.api.pipeline import GraphPipeline
-    from repro_torch.graph.generate import rmat
     from repro_torch.kernels import dispatch
 
     st = Stages()
-    g = st("generate", rmat, num_edges=1 << log2_edges, **FULL)
+    t = time.perf_counter()
+    g, st.s["generate"] = graph.result()
+    st.s["generate_wait"] = time.perf_counter() - t
     V = g.num_vertices
-    log(f"full: {V} vertices, {g.num_edges} edges, p={PARTS}")
+    log(f"full: {V} vertices, {g.num_edges} edges, p={PARTS} (generated in "
+        f"{st.s['generate']:.1f} s, waited {st.s['generate_wait']:.1f} s)")
 
     # ---- the main path, with the launch counts zeroed just before it.
     dispatch.reset_launches()
     pipe = GraphPipeline(g, device=dev).partition("ebg_chunked", parts=PARTS)
     st("partition", lambda: pipe.result)
-    m = st("metrics", lambda: pipe.metrics)
+    # The metrics and the two builds are host numpy, which leaves the GIL
+    # for most of its time: the metrics and the directed build run in
+    # threads beside the symmetric build (each wall its own).
+    t = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        metrics = pool.submit(timed, lambda: pipe.metrics)
+        directed = pool.submit(timed, pipe.subgraphs_for, symmetrize=False)
+        st("build_symmetric", pipe.subgraphs_for, symmetrize=True)
+        m, st.s["metrics"] = metrics.result()
+        _, st.s["build_directed"] = directed.result()
+    st.s["builds_and_metrics"] = time.perf_counter() - t
     runs = {}
-    st("build_symmetric", pipe.subgraphs_for, symmetrize=True)
     for prog in ("cc", "reach"):
         runs[prog] = st(f"run_{prog}", pipe.run, prog)
     pipe.subgraphs_for(symmetrize=True)  # cached
-    st("build_directed", pipe.subgraphs_for, symmetrize=False)
     for prog in ("sssp", "bfs", "pr"):
         runs[prog] = st(f"run_{prog}", pipe.run, prog)
     launches = dict(dispatch.LAUNCHES)
@@ -1849,6 +1896,159 @@ def dist_child(work: Path) -> int:
     finally:
         dist.destroy_process_group()
     return 0
+
+
+# ------------------------------------------- the graph engine's dry-run
+
+
+def phase_graph_dryrun(dev):
+    """Phase 5b: the production dry-run at p = 256 and p = 512 (see the
+    module docstring). Returns ({"p256": record, "p512": record, "launches":
+    the path's launches, "phase_s": ...}, the min kernel's entry at the
+    dry-run shape)."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch import graph_dryrun as gd
+
+    t0 = time.perf_counter()
+    out, launches, entry = {}, {}, None
+    for multi_pod in (False, True):
+        name = "p512" if multi_pod else "p256"
+        dispatch.reset_launches()
+        rec = gd.run_graph_dryrun(multi_pod=multi_pod, device=dev, **GRAPH_DRYRUN)
+        got = dict(dispatch.LAUNCHES)
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        check(rec["collectives"] == rec["plan_collectives"]
+              and rec["collectives_count"] == 3 * rec["supersteps"] + 1,
+              f"graph_dryrun {name}: recorded collectives {rec['collectives']} "
+              f"({rec['collectives_count']}) differ from the plan's {rec['plan_collectives']}")
+        check(rec["device_arg_bytes"] == rec["arg_bytes"],
+              f"graph_dryrun {name}: the rank's tensors hold {rec['device_arg_bytes']} bytes on "
+              f"the card, the plan {rec['arg_bytes']}")
+        check(rec["bsp_superstep_launches"] > 0
+              and got.get("bsp_superstep.min", 0) == rec["bsp_superstep_launches"],
+              f"graph_dryrun {name}: bsp_superstep.min launches {got}")
+        first, shard_entry = dryrun_first_superstep(gd, multi_pod, dev, timed=entry is None)
+        rec["first_superstep"] = first
+        entry = entry or shard_entry
+        out[name] = rec
+        log(f"graph_dryrun {name}: {rec['supersteps']} supersteps, first "
+            f"{rec['first_superstep_ms']:.3f} ms, then {rec['ms_per_superstep']} ms a superstep "
+            f"({rec['superstep_ms']}), inner "
+            f"passes that changed {rec['inner_iters_per_superstep']}; collectives == plan "
+            f"({rec['collectives_count']}: {rec['collectives']}); arguments {rec['arg_bytes']} B "
+            f"== plan, peak {rec['per_device_hbm_total']} B; link {rec['link_bytes_per_device']}"
+            f" B a superstep; bound {rec['bottleneck']} {rec['bound_s'] * 1e6:.1f} us; first "
+            f"superstep == plain version; launches {got}")
+    out["launches"] = launches
+    entry["launches"] = launches.get("bsp_superstep.min", 0)
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"graph_dryrun: phase {out['phase_s']:.1f} s")
+    return out, entry
+
+
+class PlainSuperstep:
+    """While entered, the superstep wrappers run the plain PyTorch version
+    on CUDA tensors too (`kernels.bsp_superstep._run` patched): the same
+    call with the ids checked on the host, no launch, nothing counted."""
+
+    def __enter__(self):
+        from repro_torch.kernels import bsp_superstep as bsp
+        from repro_torch.kernels.dispatch import check_ids
+
+        self._real = bsp._run
+
+        def plain(lsrc, ldst, weight, val, num_out, combine, inner_cap, out_degree, err,
+                  taken=None, live=None):
+            check_ids(("lsrc", lsrc, num_out), ("ldst", ldst, num_out))
+            return bsp.bsp_superstep_plain(lsrc, ldst, weight, val, num_out, combine=combine,
+                                           inner_cap=inner_cap, out_degree=out_degree,
+                                           live=live)
+
+        bsp._run = plain
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import bsp_superstep as bsp
+
+        bsp._run = self._real
+
+
+def dryrun_first_superstep(gd, multi_pod, dev, timed):
+    """The dry-run's first superstep (a lowering of one superstep on the
+    same synthetic shard) through the min kernel and through its plain
+    version, bitwise (values, messages, inner passes). With `timed`, also
+    the min kernel's entry at this shard's first local stage."""
+    kw = dict(GRAPH_DRYRUN, num_supersteps=1)
+    with gd.lowered_dryrun(multi_pod=multi_pod, device=dev, **kw) as (low, arrays, init):
+        kern = low.stepper(arrays, init)
+        with PlainSuperstep():
+            plain = low.stepper(arrays, init)
+        r = low.rows
+        check(kern[2] == plain[2] == 1 and torch.equal(kern[0][r], plain[0][r])
+              and torch.equal(kern[3][:, r], plain[3][:, r])
+              and torch.equal(kern[4][:, r], plain[4][:, r]),
+              "graph_dryrun: the first superstep differs from the plain version's")
+        first = dict(equal_to_plain=True, messages=int(kern[3][0, r].sum()),
+                     inner_iters=int(kern[4][0, r].sum()))
+        entry = measure_dryrun_min(low, arrays, init, dev) if timed else None
+    return first, entry
+
+
+def measure_dryrun_min(low, arrays, init, dev):
+    """bsp_superstep.min at the dry-run's shape: one worker's CC stream of
+    both directions over the synthetic shard ([1, 2 x 8,388,608] edges,
+    1,048,577 values), bitwise against the plain version, timed beside its
+    bound (the stream read once, the values in and out; two operations an
+    edge a pass) and one scatter_reduce_ pass; ms a pass beside a pass's
+    bound (the stream once)."""
+    from repro_torch.graph import engine
+    from repro_torch.kernels import bsp_superstep as bsp
+
+    exec_prog, _ = engine._exec_view(engine.get_program(GRAPH_DRYRUN["program"]))
+    plan = engine._plan_for(exec_prog, low.stepper.shard(arrays), 512)
+    val = engine._to_f32(init[low.rows].to(dev)).contiguous()
+    cap = GRAPH_DRYRUN["inner_cap"]
+    kw = dict(num_out=plan.num_out, combine="min", inner_cap=cap)
+    lsrc, ldst, w = plan.lsrc, plan.ldst, plan.weight
+    got = bsp.bsp_superstep(lsrc, ldst, w, val, **kw)
+    want = bsp.bsp_superstep_plain(lsrc, ldst, w, val, **kw)
+    check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+          "bsp_superstep.min at the dry-run shape differs from the plain version")
+    flag = torch.zeros((1,), dtype=torch.int32, device=dev)
+    ms = cuda_ms(lambda: bsp.bsp_superstep(lsrc, ldst, w, val, **kw), reps=5)
+    kernel_ms = cuda_ms(lambda: bsp.launch_flagged(lsrc, ldst, w, val, err=flag, **kw), reps=5)
+    plain_ms = cuda_ms(lambda: bsp.bsp_superstep_plain(lsrc, ldst, w, val, **kw), reps=1)
+    check(int(flag) == 0, "bsp_superstep.min: the id guard fired on the dry-run's shard")
+    p, E = lsrc.shape
+    passes = int((got[1] + 1).clamp(max=cap).sum())
+    io_bytes = nbytes(lsrc, ldst, w, val) + nbytes(*got)
+    ops = 2.0 * passes * E
+    bound = max(io_bytes / HBM_BYTES_PER_S, ops / F32_FLOPS)
+    pass_bound = max(12.0 * p * E / HBM_BYTES_PER_S, 2.0 * p * E / F32_FLOPS)
+    taken = torch.zeros((cap,), dtype=torch.int64, device=dev)
+    bsp.launch_flagged(lsrc, ldst, w, val, err=flag, taken=taken, **kw)
+    taken = taken[:int(got[1].max()) + 1].tolist()
+    data = torch.where(w < 3.0e38, torch.gather(val, 1, lsrc.long()) + w, 3.0e38)
+    idx = ldst.long()
+    scratch = val.clone()
+    library_ms = cuda_ms(lambda: scratch.scatter_reduce_(1, idx, data, "amin"), reps=5)
+    entry = dict(
+        name="bsp_superstep.min.dryrun", route="cuda",
+        source="src/repro_torch/kernels/csrc/bsp_superstep.cu",
+        replaces="src/repro/kernels/bsp_superstep.py:182", launches=0, max_abs_err=0.0,
+        ms=ms, plain_ms=plain_ms, bound_ms=1e3 * bound,
+        bound_by="bytes" if io_bytes / HBM_BYTES_PER_S >= ops / F32_FLOPS else "operations",
+        library_ms=library_ms, library="Tensor.scatter_reduce_(amin), one pass",
+        kernel_ms=kernel_ms, worker_passes=passes, ms_per_pass=ms / passes,
+        pass_bound_ms=1e3 * pass_bound, pass_edges=taken,
+        shape=f"graph_dryrun CC first local stage, one worker: stream [{p}, {E}] (both "
+              f"directions of {E // 2} edges), values [{val.shape[0]}, {plan.num_out}]",
+    )
+    log(f"kernel bsp_superstep.min.dryrun: {ms:.4f} ms ({passes} passes, {ms / passes:.4f} ms a "
+        f"pass against {1e3 * pass_bound:.4f}); bound {1e3 * bound:.4f} ms; plain "
+        f"{plain_ms:.3f} ms; scatter_reduce_ pass {library_ms:.4f} ms")
+    return entry
 
 
 # -------------------------------------- full width: kernels at their shapes
@@ -3290,16 +3490,37 @@ def main(argv=None) -> int:
     log(f"card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     analysis, bindings = phase_analysis(smi)
-    build_s = phase_build()
-    record = dict(card=smi, build_s=build_s)
-    kernels = []
+    pool = None
     if not args.lm_only:
-        record["smoke_kernel_errors"] = phase_kernels(dev)
-        record["pinned_s"], record["pinned_drivers"] = phase_pinned(dev)
-        t = time.perf_counter()
-        record["baselines"] = phase_baselines(dev)
-        record["baselines_s"] = time.perf_counter() - t
-        record["full"], kernels = phase_full(dev, args.full_log2_edges)
+        from concurrent.futures import ThreadPoolExecutor
+
+        from repro_torch.graph.generate import rmat
+
+        # The full-width R-MAT graph (host numpy, 4-5 minutes, set-up) is
+        # generated in a thread beside phases 1-4, which wait on nvcc, the
+        # card and their own host loops. It starts after the analysis phase,
+        # host Python that it would slow.
+        pool = ThreadPoolExecutor(max_workers=1)
+        graph = pool.submit(timed, rmat, num_edges=1 << args.full_log2_edges, **FULL)
+    try:
+        build_s = phase_build()
+        record = dict(card=smi, build_s=build_s)
+        kernels = []
+        if not args.lm_only:
+            record["smoke_kernel_errors"] = phase_kernels(dev)
+            record["pinned_s"], record["pinned_drivers"] = phase_pinned(dev)
+            t = time.perf_counter()
+            record["baselines"] = phase_baselines(dev)
+            record["baselines_s"] = time.perf_counter() - t
+            record["full"], kernels = phase_full(dev, graph)
+    finally:
+        if pool is not None:  # a failed phase leaves the generation to end on its own
+            pool.shutdown(wait=False)
+    if not args.lm_only:
+        record["graph_dryrun"], dryrun_entry = phase_graph_dryrun(dev)
+        for e in kernels:  # the dry-run path's launches beside the main path's
+            e["dryrun_launches"] = record["graph_dryrun"]["launches"].get(e["name"], 0)
+        kernels.append(dryrun_entry)
     lm, lm_kernels = phase_lm(dev)
     for e in kernels:  # the LM path's launches beside the main path's
         e["lm_launches"] = lm["launches"].get(e["name"],
@@ -3330,6 +3551,8 @@ def main(argv=None) -> int:
             "queries", "wall_s", "throughput_qps", "latency_p50_s", "latency_p99_s", "batches",
             "mean_batch", "padding_waste", "supersteps_mean", "cache", "resilience",
             "capture_s")}}))
+    if "graph_dryrun" in record:
+        print(json.dumps({"graph_dryrun": dict(record["graph_dryrun"], card=smi)}))
     print(json.dumps({"lm_serve": lm_line(lm, smi)}))
     print(json.dumps({"lm_families": families_line(families, smi)}))
     print(json.dumps({"lm_train": train_line(lm_train, smi, total)}))

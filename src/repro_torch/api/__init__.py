@@ -23,7 +23,7 @@ from repro_torch.api.registry import (
     register_partitioner,
 )
 
-_LAZY = ("BatchRun", "GraphPipeline", "PipelineRun")
+_LAZY = ("BatchRun", "GraphPipeline", "LoweredBSP", "PipelineRun", "SubgraphSpec")
 
 
 def __getattr__(name):

@@ -1,6 +1,5 @@
 """`GraphPipeline` — the end-to-end facade over the paper's stack (port of
-`repro.api.pipeline`; its AOT half, `SubgraphSpec` and `.lower`, is not
-ported).
+`repro.api.pipeline`).
 
     run = GraphPipeline(graph).partition("ebg_chunked", parts=32).build().run("cc")
     run.stats.total_messages, run.metrics.replication_factor, run.to_global()
@@ -15,21 +14,32 @@ cheap: `.partition(...)` starts a fresh stage; `.build(...)` and repeated
 `PartitionMetrics` and per-(symmetrize, pad) `SubgraphSet`s. If `.build`
 is never called, `.run` picks the build the program needs (bidirectional
 programs symmetrize; the rest keep edge direction).
+
+Distributed execution shares the facade: `GraphPipeline.from_spec(spec)`
+makes an abstract (shape-only) pipeline, and `.lower(mesh=...)` builds one
+rank's distributed BSP stepper for an abstract spec or a built subgraph
+set, with its plan: this rank's argument bytes, one superstep's
+collectives and one local pass's bytes and operations, reckoned from the
+shapes and the mesh alone (the counterpart of the reference's compiled
+memory and cost analyses). This is what the production dry-run drives
+(`repro_torch.launch.graph_dryrun`).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+import time
 from typing import Optional, Union
 
 import numpy as np
+import torch
 
 from repro_torch.api.config import PartitionerConfig
 from repro_torch.api.registry import PartitionerSpec, check_num_parts, get_partitioner
 from repro_torch.core.metrics import PartitionMetrics, partition_metrics
 from repro_torch.core.types import Graph, PartitionResult, as_numpy
 from repro_torch.graph import algorithms as alg
-from repro_torch.graph.build import SubgraphSet, build_subgraphs
+from repro_torch.graph.build import ARRAY_FIELDS, SubgraphSet, build_subgraphs
 from repro_torch.graph.engine import (
     BSPStats,
     VertexProgram,
@@ -43,7 +53,8 @@ from repro_torch.graph.engine import (
     subgraphs_to_arrays,
 )
 from repro_torch.kernels.dispatch import resolve_device
-from repro_torch.launch.mesh import axis_size
+from repro_torch.launch.mesh import axes_group, axis_size
+from repro_torch.launch.roofline import CollectiveSummary, summarize_collectives
 
 ProgramLike = Union[str, VertexProgram]
 
@@ -78,19 +89,235 @@ def _normalize_axes(mesh, axes) -> tuple:
     return (axes,) if isinstance(axes, str) else tuple(axes)
 
 
-class GraphPipeline:
-    """Fluent partition → build → engine → metrics session on one device."""
+# --------------------------------------------------------------- dry-run spec
 
-    def __init__(self, graph: Graph, *, weights: Optional[np.ndarray] = None, device=None):
+_DTYPES = {"int32": torch.int32, "float32": torch.float32, "bool": torch.bool}
+# Each SubgraphSet array: its dtype and its shape class ("e": [p, max_e],
+# "v": [p, max_v], "m": [p, p, max_msg]).
+_ARRAY_LAYOUT = {
+    "lsrc": ("int32", "e"), "ldst": ("int32", "e"), "weight": ("float32", "e"),
+    "edge_mask": ("bool", "e"), "lsrc_s": ("int32", "e"), "ldst_s": ("int32", "e"),
+    "weight_s": ("float32", "e"), "edge_mask_s": ("bool", "e"),
+    "gid": ("int32", "v"), "vmask": ("bool", "v"), "is_master": ("bool", "v"),
+    "out_degree": ("float32", "v"),
+    "send_idx": ("int32", "m"), "recv_idx": ("int32", "m"), "msg_mask": ("bool", "m"),
+    "recv_mask": ("bool", "m"),
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class SubgraphSpec:
+    """Shape-only description of a padded SubgraphSet (for lowering)."""
+
+    num_parts: int
+    max_v: int
+    max_e: int
+    max_msg: int = 2048
+    addressing: str = "two_level"
+
+    @classmethod
+    def of(cls, sub: SubgraphSet) -> "SubgraphSpec":
+        return cls(sub.num_parts, sub.max_v, sub.max_e, sub.max_msg, sub.addressing)
+
+    def array_shape(self, name: str, rows: Optional[int] = None) -> tuple:
+        """The shape of array `name`, with `rows` leading rows (all p by default)."""
+        p = self.num_parts
+        rows = p if rows is None else rows
+        kind = _ARRAY_LAYOUT[name][1]
+        return {"e": (rows, self.max_e), "v": (rows, self.max_v),
+                "m": (rows, p, self.max_msg)}[kind]
+
+    def array_specs(self) -> tuple[dict, dict]:
+        """Meta tensors (shapes and dtypes, no storage) + statics matching
+        `subgraphs_to_arrays`: PyTorch's counterpart of the reference's
+        ShapeDtypeStructs."""
+        arrays = {k: torch.empty(self.array_shape(k), dtype=_DTYPES[_ARRAY_LAYOUT[k][0]],
+                                 device="meta")
+                  for k in ARRAY_FIELDS}
+        statics = dict(num_parts=self.num_parts, max_v=self.max_v, max_e=self.max_e,
+                       max_msg=self.max_msg, addressing=self.addressing)
+        return arrays, statics
+
+    def value_spec(self, prog: VertexProgram) -> torch.Tensor:
+        dt = torch.int32 if prog.dtype == "int32" else torch.float32
+        return torch.empty((self.num_parts, self.max_v + 1), dtype=dt, device="meta")
+
+
+def superstep_reads(prog: VertexProgram) -> tuple:
+    """The SubgraphSet arrays a superstep of `prog` reads (`engine._run_plan`
+    and `_superstep`), in field order: the local stage's stream (the
+    src-sorted copy too for bidirectional programs; the weights only for
+    edge weights; the out-degree for sweeps), `is_master` for the
+    pagerank apply, and the four exchange tables."""
+    reads = {"lsrc", "ldst", "edge_mask", "send_idx", "recv_idx", "msg_mask", "recv_mask"}
+    if prog.local == "fixpoint":
+        if prog.weight == "edge":
+            reads.add("weight")
+        if prog.bidirectional:
+            reads |= {"lsrc_s", "ldst_s", "edge_mask_s"}
+            if prog.weight == "edge":
+                reads.add("weight_s")
+    else:
+        reads.add("out_degree")
+    if prog.apply == "pagerank":
+        reads.add("is_master")
+    return tuple(k for k in ARRAY_FIELDS if k in reads)
+
+
+@dataclasses.dataclass(frozen=True)
+class PlanMemory:
+    """`LoweredBSP.memory_analysis()`: this rank's argument bytes, reckoned
+    from shapes. `argument_size_in_bytes` counts every array the runner cuts
+    to the device and the values; `read_argument_size_in_bytes` only the
+    arrays a superstep reads (`superstep_reads`) and the values, as the
+    reference's lowering keeps just those. Temporaries are not reckoned:
+    the dry-run measures them (`launch.graph_dryrun`)."""
+
+    argument_size_in_bytes: int
+    read_argument_size_in_bytes: int
+    temp_size_in_bytes: Optional[int] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class BSPPlan:
+    """One rank's share of the distributed stepper, reckoned from the spec's
+    shapes and the mesh alone (no tensor is made, so it runs at Friendster
+    size on any host). Like the reference's compiled analyses, which count
+    a while loop's body once, its figures are one superstep and one local
+    pass.
+
+    `arrays`: bytes of this rank's rows of each array; `values`: its values
+    [rows, max_v + 1] (4 B each). `superstep`: one superstep's collectives,
+    in order, as (kind, output bytes, group size): the forward and the
+    broadcast all-to-all of `engine._a2a_exchange` (f32 values), then the
+    convergence collective (an all-reduce of one int32 for no-change
+    programs; an all-gather of the p f32 deltas for tol programs). `final`:
+    the runner's own assembly, one all-gather of every rank's values and
+    stats (the reference returns sharded values instead); it is kept out
+    of the link bytes a superstep. `pass_bytes` / `pass_flops`: one local
+    pass of the kernel over this rank's rows, each input read once and each
+    output written once (the stream as `engine._run_plan` pads it, lsrc,
+    ldst and an f32 weight, 12 B an edge; the values in and out; the
+    out-degree for sweeps; the iteration counts), two operations an edge."""
+
+    program: str
+    ranks: int
+    rows: int
+    arrays: dict
+    reads: tuple
+    values: int
+    superstep: tuple
+    final: tuple
+    stream_edges: int
+    pass_bytes: int
+    pass_flops: int
+
+    @property
+    def arg_bytes(self) -> int:
+        return sum(self.arrays.values()) + self.values
+
+    @property
+    def read_arg_bytes(self) -> int:
+        return sum(self.arrays[k] for k in self.reads) + self.values
+
+    def records(self, supersteps: int) -> list:
+        """The collectives of a run of `supersteps` supersteps, in order."""
+        return list(self.superstep) * supersteps + list(self.final)
+
+    def collectives(self, supersteps: int = 1, final: bool = False) -> CollectiveSummary:
+        return summarize_collectives(list(self.superstep) * supersteps
+                                     + (list(self.final) if final else []))
+
+    @property
+    def link_bytes_per_superstep(self) -> float:
+        return self.collectives().total_link_bytes
+
+
+def plan_bsp(spec: SubgraphSpec, prog: VertexProgram, ranks: int, *, num_supersteps: int,
+             block_e: int = 512) -> BSPPlan:
+    """The `BSPPlan` of one rank of `ranks` holding p/ranks subgraphs of
+    `spec` under the distributed stepper of `prog`."""
+    prog = get_program(prog)
+    p, m, n = spec.num_parts, spec.max_msg, spec.max_v + 1
+    if p % ranks:
+        raise ValueError(f"num_parts={p} must divide evenly over {ranks} ranks")
+    nloc = p // ranks
+    arrays = {k: math.prod(spec.array_shape(k, nloc))
+              * torch.empty((), dtype=_DTYPES[_ARRAY_LAYOUT[k][0]]).element_size()
+              for k in ARRAY_FIELDS}
+    exchange = ("all-to-all", 4 * p * nloc * m, ranks)
+    converge = (("all-gather", 4 * p, ranks) if prog.convergence == "tol"
+                else ("all-reduce", 4, ranks))
+    pack = nloc * n + 2 * num_supersteps * nloc + 1  # int32 words a rank
+    final = (("all-gather", 4 * ranks * pack, ranks),)
+    E = spec.max_e * (2 if prog.local == "fixpoint" and prog.bidirectional else 1)
+    blk = max(min(block_e, E), 1)
+    E += (-E) % blk  # ops.pad_stream
+    per_row = 12 * E + 8 * n + 4 + (4 * n if prog.local == "sweep" else 0)
+    return BSPPlan(
+        program=prog.name, ranks=ranks, rows=nloc, arrays=arrays, reads=superstep_reads(prog),
+        values=4 * nloc * n, superstep=(exchange, exchange, converge), final=final,
+        stream_edges=E, pass_bytes=nloc * per_row, pass_flops=2 * nloc * E,
+    )
+
+
+@dataclasses.dataclass
+class LoweredBSP:
+    """One rank's distributed BSP stepper and its plan (`GraphPipeline.lower`).
+
+    `stepper` is the runner of `engine.make_distributed_stepper`, called
+    with the whole set's arrays and initial values; `rows` the slice of
+    subgraphs this rank holds; `compile_s` lower's wall. PyTorch compiles
+    nothing here: the CUDA kernels are built by `kernels.dispatch`, and the
+    runner cuts its rows and plans their stream at its first call."""
+
+    spec: SubgraphSpec
+    program: str
+    mesh: object
+    axes: tuple
+    stepper: object
+    rows: slice
+    compile_s: float
+    plan: BSPPlan
+
+    def memory_analysis(self) -> PlanMemory:
+        return PlanMemory(self.plan.arg_bytes, self.plan.read_arg_bytes)
+
+    def cost_analysis(self) -> dict:
+        """One local pass's operations and bytes (the reference's XLA keys)."""
+        return {"flops": float(self.plan.pass_flops),
+                "bytes accessed": float(self.plan.pass_bytes)}
+
+
+# ------------------------------------------------------------------ pipeline
+
+
+class GraphPipeline:
+    """Fluent partition → build → engine → metrics session on one device
+    (see the module docstring); `from_spec` makes an abstract one."""
+
+    def __init__(self, graph: Optional[Graph], *, weights: Optional[np.ndarray] = None,
+                 device=None):
         self.graph = graph
-        self.device = resolve_device(device)
+        # An abstract pipeline runs nothing here: its stepper runs on the
+        # mesh's device.
+        self.device = None if graph is None else resolve_device(device)
+        self._spec: Optional[SubgraphSpec] = None
         self._weights = weights
         self._state: Optional[dict] = None  # partition-stage caches, shared by views
         self._build_params: Optional[dict] = None
         self._source: Optional[int] = None
 
+    @classmethod
+    def from_spec(cls, spec: SubgraphSpec) -> "GraphPipeline":
+        """Abstract pipeline (shapes only): supports `.lower`, not `.run`."""
+        pipe = cls(None)
+        pipe._spec = spec
+        return pipe
+
     def _clone(self, *, state=None, build_params=None) -> "GraphPipeline":
         pipe = GraphPipeline(self.graph, weights=self._weights, device=self.device)
+        pipe._spec = self._spec
         pipe._state = self._state if state is None else state
         pipe._build_params = self._build_params if build_params is None else build_params
         pipe._source = self._source
@@ -108,6 +335,8 @@ class GraphPipeline:
     ) -> "GraphPipeline":
         """Select a registered partitioner; returns a new pipeline view whose
         downstream stages are computed lazily and cached."""
+        if self.graph is None:
+            raise RuntimeError("abstract (from_spec) pipelines cannot partition a graph")
         spec = partitioner if isinstance(partitioner, PartitionerSpec) else get_partitioner(partitioner)
         check_num_parts(parts)
         cfg = spec.make_config(config, **overrides)
@@ -116,6 +345,9 @@ class GraphPipeline:
         return self._clone(state=state, build_params={})
 
     def _stage(self) -> dict:
+        if self.graph is None:
+            raise RuntimeError("abstract (from_spec) pipelines have no graph to partition, "
+                               "build or run: they only .lower")
         if self._state is None:
             raise RuntimeError("no partition stage: call .partition(name, parts=...) first")
         return self._state
@@ -342,6 +574,60 @@ class GraphPipeline:
             stats=stats,
             subgraphs=sub,
             sources=tuple(int(s) for s in sources) if sources is not None else None,
+        )
+
+    # --------------------------------------------------------------- lower
+
+    def lower(
+        self,
+        *,
+        mesh,
+        axes=None,
+        program: ProgramLike = "cc",
+        num_supersteps: int = 4,
+        inner_cap: int = 64,
+        tol: float = 0.0,
+        symmetrize: Optional[bool] = None,
+        pad_multiple: Optional[int] = None,
+        num_vertices: Optional[int] = None,
+        block_e: int = 512,
+    ) -> LoweredBSP:
+        """Build this rank's distributed BSP stepper over `mesh` (abstract
+        or concrete pipeline) for ANY registered program, with its plan.
+
+        The kernels run int32 programs (CC/BFS/REACH) through f32, exact
+        only for labels below 2^24. Concrete pipelines are checked here
+        (flat addressing; the runner checks the values it is given); an
+        abstract (from_spec) pipeline has no labels to check, so the CALLER
+        must keep the arrays and values it feeds the stepper below 2^24.
+        Programs whose apply step renormalizes (PageRank) need
+        `num_vertices=` when lowering from an abstract spec.
+        """
+        t0 = time.perf_counter()
+        prog = get_program(program)
+        axes = _normalize_axes(mesh, axes)
+        nv = self.graph.num_vertices if self.graph is not None else int(num_vertices or 0)
+        if prog.apply == "pagerank" and nv <= 0:
+            raise ValueError(
+                "lowering a pagerank-apply program from an abstract spec needs num_vertices="
+            )
+        if self._spec is not None:
+            spec = self._spec
+        else:
+            sub = self.subgraphs_for(**self._build_params_for(prog, symmetrize, pad_multiple))
+            check_int32_kernel_labels(prog, sub)
+            spec = SubgraphSpec.of(sub)
+        _, statics = spec.array_specs()
+        stepper = make_distributed_stepper(
+            mesh, axes, prog, statics, num_supersteps=num_supersteps, inner_cap=inner_cap,
+            tol=tol, num_vertices=nv, block_e=block_e,
+        )
+        _, rank, w = axes_group(mesh, axes)
+        plan = plan_bsp(spec, prog, w, num_supersteps=num_supersteps, block_e=block_e)
+        return LoweredBSP(
+            spec=spec, program=prog.name, mesh=mesh, axes=axes, stepper=stepper,
+            rows=slice(rank * plan.rows, (rank + 1) * plan.rows),
+            compile_s=time.perf_counter() - t0, plan=plan,
         )
 
     def serve(self, **server_kwargs) -> "GraphQueryServer":

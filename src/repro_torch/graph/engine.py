@@ -1394,6 +1394,8 @@ def make_distributed_stepper(
     `fault_plan=` (a `repro_torch.resilience.FaultPlan` with
     `crash_at_superstep=s`) caps the loop at s supersteps and raises
     `WorkerCrashError(superstep=s)` if it was still running then.
+    `runner.shard(arrays)` is the `SubgraphSet` of this rank's rows that
+    the runner cuts from (and caches for) those arrays.
     """
     prog = get_program(prog)
     check_pagerank_num_vertices(prog, num_vertices)
@@ -1470,6 +1472,7 @@ def make_distributed_stepper(
             raise WorkerCrashError(superstep=crash_at)
         return (-vals if negate else vals), msgs_sp.sum(dim=0), steps, msgs_sp, iters_sp
 
+    runner.shard = shard
     return runner
 
 

@@ -4,4 +4,6 @@ through the graph-query server; `serve` prefills and greedily decodes a
 batch of prompts on an LM; `train` trains an LM on the synthetic token
 pipeline with checkpoint/restart (and holds the presets both share);
 `mesh` makes the `torch.distributed` device meshes the distributed engine
-runs on."""
+runs on (and the fake world of the dry-run); `graph_dryrun` runs rank 0 of
+the graph engine's production world on a Friendster-scale shard, with
+`roofline`'s collective recorder and H100 roofline terms."""

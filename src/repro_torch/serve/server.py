@@ -204,6 +204,8 @@ class GraphQueryServer:
         breaker: Optional[CircuitBreaker] = None,
         fault_plan: Optional[FaultPlan] = None,
     ):
+        if pipeline.graph is None:
+            raise RuntimeError("abstract (from_spec) pipelines cannot serve queries")
         pipeline._stage()  # require a partition stage up front
         top = bucket_size(max_batch, DEFAULT_BUCKETS if buckets is None else buckets)
         self.buckets = (

@@ -162,6 +162,28 @@ Phases; a failed check raises and the script exits non-zero:
               against its plain version on that shard's first local stage
               and timed a pass beside its bound. One {"graph_dryrun": ...}
               stdout line with both records.
+  5c. lm_dryrun
+              the LM half of the dry-run (repro_torch.launch.dryrun). Its
+              fake cells run in a process of their own (this script's
+              --lm-dryrun-child), started after the build and run beside
+              phases 2-5: lower_cell on the card's device type, rank 0 of a
+              fake world of 256 (16 x 16) under FakeTensorMode, full width:
+              llama3_2_3b x train_4k, prefill_32k and decode_32k, and
+              train_4k at p = 512 (2 x 16 x 16); phi3_5_moe x train_4k under
+              plan ep; mamba2_780m x long_500k. Each gives its record
+              (per-device FLOPs, bytes, collectives, arg/temp/output bytes,
+              roofline terms); a cell with no record (a .FAIL) fails
+              the phase. Then, in this
+              process, one real run: rank 0 of p = 256 for llama3_2_3b x
+              decode_32k, its shards (bf16 weights, caches and tokens drawn
+              from seed 0) on the card in a fake world, 8 decode steps from
+              cache position 32,760, launch counts zeroed just before and
+              read just after: decode_attention exactly 28 x 8 times; its
+              first call (on the keys DTensor gathered) within ATTN_TOL of
+              the plain version on the same inputs; the rank's bytes on the
+              card equal to the fake decode cell's arg_bytes; the logits
+              finite; torch.cuda.max_memory_allocated beside the fake
+              temp_bytes. One {"lm_dryrun": ...} stdout line.
   6. lm       the LM serving path at full width: llama3_2_3b at its
               published widths (28 layers, d_model 3,072, 24 query heads
               over 8 KV heads), ~3.2 B bf16 parameters drawn on the card
@@ -236,8 +258,10 @@ Phases; a failed check raises and the script exits non-zero:
               CUBLAS_WORKSPACE_CONFIG: 6 steps checkpointed at 3 and 6, and
               a run resumed from the step-3 checkpoint alone, equal bit for
               bit (losses, parameters, optimizer state). One {"lm_train":
-              ...} stdout line. `--lm-only` runs the analysis, the build and
-              phases 6-8 alone.
+              ...} stdout line. It runs after the baselines phase, while the
+              full-width graph's generation ends (it needs no graph), and
+              last under `--lm-only`, which runs the analysis, the build,
+              phase 5c and phases 6-8 alone.
 
 Prints the card's name and power limit, the {"analysis": ...}, {"serve": ...},
 {"graph_dryrun": ...}, {"lm_serve": ...},
@@ -248,8 +272,10 @@ It needs the repository around it and a CUDA card; without either it fails.
 from __future__ import annotations
 
 import argparse
+import atexit
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -400,6 +426,18 @@ LM_TRAIN_MODELS = (("llama3_2_3b", 6), ("mamba2_780m", 4))
 # 1e-4 and the grad norm within 1e-4 of itself, the sums in another order.
 # A MoE config takes the first data seed whose router top-k margins exceed
 # 1e-3 on the CPU, so that no near tie picks another expert on the card.
+# The LM dry-run's fake cells: (arch, shape, multi_pod, plan).
+LM_DRYRUN_CELLS = (
+    ("llama3_2_3b", "train_4k", False, "baseline"),
+    ("llama3_2_3b", "prefill_32k", False, "baseline"),
+    ("llama3_2_3b", "decode_32k", False, "baseline"),
+    ("llama3_2_3b", "train_4k", True, "baseline"),
+    ("phi3_5_moe", "train_4k", False, "ep"),
+    ("mamba2_780m", "long_500k", False, "baseline"),
+)
+# Its real run: rank 0 of p = 256 on the card.
+LM_DRYRUN_REAL = dict(arch="llama3_2_3b", shape="decode_32k", steps=8, seed=0)
+LM_DRYRUN_CHILD_TIMEOUT = 900
 TRAIN_CARD_LOSS_ATOL = 1e-4
 TRAIN_CARD_NORM_RTOL = 1e-4
 TRAIN_ROUTE_MARGIN = 1e-3
@@ -1740,7 +1778,7 @@ def dist_stepper(pipe, runs, drivers, mesh):
                 dispatch.reset_launches()
             sync()
             t = time.perf_counter()
-            val, _, steps, ms, its = runner(arrays, init)
+            val, _, steps, ms, its = runner.gather(runner(arrays, init))  # world 1: all rows
             row[f"dist_{run}_s"] = time.perf_counter() - t
             row["dist_syncs"] = engine.HOST_SYNCS["dist"] - syncs
             if run == "cold":
@@ -1888,7 +1926,9 @@ def dist_child(work: Path) -> int:
                                                  job["statics"], num_supersteps=200,
                                                  inner_cap=10_000)
         t = time.perf_counter()
-        val, _, steps, ms, its = runner(arrays, job["init"])
+        r = runner.rows  # this rank's rows in, the whole set gathered out
+        val, _, steps, ms, its = runner.gather(runner({k: a[r] for k, a in arrays.items()},
+                                                      job["init"][r]))
         wall = time.perf_counter() - t
         if rank == 0:
             torch.save(dict(val=val, steps=steps, ms=ms, its=its, wall_s=wall),
@@ -1918,8 +1958,9 @@ def phase_graph_dryrun(dev):
         got = dict(dispatch.LAUNCHES)
         for k, v in got.items():
             launches[k] = launches.get(k, 0) + v
+        # Three a superstep, the 2^24 guard's all-reduce before, the id flag's after.
         check(rec["collectives"] == rec["plan_collectives"]
-              and rec["collectives_count"] == 3 * rec["supersteps"] + 1,
+              and rec["collectives_count"] == 3 * rec["supersteps"] + 2,
               f"graph_dryrun {name}: recorded collectives {rec['collectives']} "
               f"({rec['collectives_count']}) differ from the plan's {rec['plan_collectives']}")
         check(rec["device_arg_bytes"] == rec["arg_bytes"],
@@ -1981,16 +2022,16 @@ def dryrun_first_superstep(gd, multi_pod, dev, timed):
     the min kernel's entry at this shard's first local stage."""
     kw = dict(GRAPH_DRYRUN, num_supersteps=1)
     with gd.lowered_dryrun(multi_pod=multi_pod, device=dev, **kw) as (low, arrays, init):
+        arrays = {k: a[low.rows] for k, a in arrays.items()}  # this rank's rows
+        init = init[low.rows]
         kern = low.stepper(arrays, init)
         with PlainSuperstep():
             plain = low.stepper(arrays, init)
-        r = low.rows
-        check(kern[2] == plain[2] == 1 and torch.equal(kern[0][r], plain[0][r])
-              and torch.equal(kern[3][:, r], plain[3][:, r])
-              and torch.equal(kern[4][:, r], plain[4][:, r]),
+        check(kern[2] == plain[2] == 1 and torch.equal(kern[0], plain[0])
+              and torch.equal(kern[3], plain[3]) and torch.equal(kern[4], plain[4]),
               "graph_dryrun: the first superstep differs from the plain version's")
-        first = dict(equal_to_plain=True, messages=int(kern[3][0, r].sum()),
-                     inner_iters=int(kern[4][0, r].sum()))
+        first = dict(equal_to_plain=True, messages=int(kern[3][0].sum()),
+                     inner_iters=int(kern[4][0].sum()))
         entry = measure_dryrun_min(low, arrays, init, dev) if timed else None
     return first, entry
 
@@ -2007,7 +2048,7 @@ def measure_dryrun_min(low, arrays, init, dev):
 
     exec_prog, _ = engine._exec_view(engine.get_program(GRAPH_DRYRUN["program"]))
     plan = engine._plan_for(exec_prog, low.stepper.shard(arrays), 512)
-    val = engine._to_f32(init[low.rows].to(dev)).contiguous()
+    val = engine._to_f32(init.to(dev)).contiguous()
     cap = GRAPH_DRYRUN["inner_cap"]
     kw = dict(num_out=plan.num_out, combine="min", inner_cap=cap)
     lsrc, ldst, w = plan.lsrc, plan.ldst, plan.weight
@@ -2609,6 +2650,9 @@ def attention_entry(name, q, k, v, end, ranges, launches, shape, launches_of, so
         del kn, vn
     ms = cuda_ms(lambda: ops.decode_attention(q, k, v, start=0, end=end, softcap=softcap),
                  reps=50)
+    # The launch without the wrapper's checks and the custom op's dispatch.
+    launch_ms = cuda_ms(lambda: decode_attn._decode_attention_cuda(q, k, v, softcap, 0, end),
+                        reps=50)
     plain_ms = cuda_ms(lambda: decode_attn.decode_attention_plain(q, k[:, :end], v[:, :end],
                                                                   softcap=softcap), reps=5)
     library_ms = None
@@ -2633,8 +2677,8 @@ def attention_entry(name, q, k, v, end, ranges, launches, shape, launches_of, so
     return dict(
         name=name, route="cuda", source=f"src/repro_torch/kernels/csrc/{source}.cu",
         replaces="src/repro/kernels/decode_attn.py:61", launches=launches,
-        launches_of=launches_of, max_abs_err=reading["max_abs_err"], ms=ms, plain_ms=plain_ms,
-        bound_ms=1e3 * bound,
+        launches_of=launches_of, max_abs_err=reading["max_abs_err"], ms=ms, launch_ms=launch_ms,
+        plain_ms=plain_ms, bound_ms=1e3 * bound,
         bound_by="bytes" if io_bytes / HBM_BYTES_PER_S >= n_ops / peak else "operations",
         library_ms=library_ms,
         library="F.scaled_dot_product_attention(enable_gqa=True), bf16 q" if library_ms
@@ -3452,6 +3496,157 @@ def phase_lm_train(dev):
     return out
 
 
+# ---------------------------------------------------- the LM dry-run
+
+
+def cell_tag(arch, shape, multi_pod, plan) -> str:
+    return f"{arch}__{shape}__{'mp' if multi_pod else 'sp'}__{plan}"
+
+
+def start_lm_dryrun_cells(work: Path):
+    """Start the LM dry-run's fake cells in a process of their own (this
+    script's --lm-dryrun-child): (process, its log file, start time)."""
+    work.mkdir(parents=True, exist_ok=True)
+    logf = open(work / "child.log", "w")
+    proc = subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                             "--lm-dryrun-child", str(work)], stdout=logf,
+                            stderr=subprocess.STDOUT)
+    atexit.register(lambda: proc.poll() is None and proc.kill())  # a failed phase stops it
+    log(f"lm_dryrun: the fake cells started in process {proc.pid}")
+    return proc, logf, time.perf_counter()
+
+
+def lm_dryrun_child(work: Path) -> int:
+    """Each of LM_DRYRUN_CELLS through lower_cell on the card's device type:
+    its record as <tag>.json, or its error as <tag>.FAIL (as the
+    reference's dry-run writes them), and its wall in walls.json."""
+    import traceback
+
+    from repro_torch.launch import dryrun
+
+    torch.cuda.set_device(0)
+    walls = {}
+    for arch, shape, multi_pod, plan in LM_DRYRUN_CELLS:
+        tag = cell_tag(arch, shape, multi_pod, plan)
+        t = time.perf_counter()
+        try:
+            rec, _, _, _ = dryrun.lower_cell(arch, shape, multi_pod=multi_pod, plan=plan)
+            (work / f"{tag}.json").write_text(json.dumps(rec, indent=1))
+        except Exception as e:  # the cell's failure is its result
+            traceback.print_exc()
+            (work / f"{tag}.FAIL").write_text(f"{type(e).__name__}: {e}")
+        walls[tag] = time.perf_counter() - t
+        print(f"{tag}: {walls[tag]:.1f} s", flush=True)
+    (work / "walls.json").write_text(json.dumps(walls))
+    return 0
+
+
+class FirstAttention:
+    """While entered, keeps the inputs and the output of the first
+    decode_attention CUDA launch (`kernels.decode_attn._decode_attention_cuda`
+    wrapped; the launch and its count as they were)."""
+
+    def __enter__(self):
+        from repro_torch.kernels import decode_attn
+
+        self.first = None
+        self._real = real = decode_attn._decode_attention_cuda
+
+        def keep(q, k, v, softcap, start, end):
+            out = real(q, k, v, softcap, start, end)
+            if self.first is None:
+                self.first = (q.clone(), k[:, start:end].clone(), v[:, start:end].clone(),
+                              softcap, out.clone())
+            return out
+
+        decode_attn._decode_attention_cuda = keep
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import decode_attn
+
+        decode_attn._decode_attention_cuda = self._real
+
+
+def phase_lm_dryrun(dev, child, smi):
+    """Phase 5c: the real rank-0 decode run here, then the fake cells'
+    records from the child process. Returns the phase's record."""
+    from repro_torch import configs
+    from repro_torch.kernels import decode_attn, dispatch
+    from repro_torch.launch import dryrun
+
+    t_phase = time.perf_counter()
+    real = dict(LM_DRYRUN_REAL)
+    torch.cuda.empty_cache()
+    dispatch.reset_launches()
+    with FirstAttention() as first:
+        run = dryrun.run_rank0(real["arch"], real["shape"], steps=real["steps"], device=dev,
+                               seed=real["seed"])
+    launches = dict(dispatch.LAUNCHES)
+    n_layers = configs.get_config(real["arch"]).n_layers
+    want = n_layers * real["steps"]
+    check(launches.get("decode_attention", 0) == want,
+          f"lm_dryrun: decode_attention launched {launches.get('decode_attention', 0)} times in "
+          f"the rank-0 run, not {n_layers} layers x {real['steps']} steps = {want}")
+    check(run["logits_finite"], "lm_dryrun: the rank-0 run's logits are not finite")
+    q, k, v, softcap, got = first.first
+    plain = decode_attn.decode_attention_plain(q, k, v, softcap=softcap).float()
+    rtol, atol = ATTN_TOL[q.dtype]
+    reading = dict(shape=dict(q=list(q.shape), k=list(k.shape)),
+                   max_abs_err=float((got.float() - plain).abs().max()),
+                   over_limit=over_limit(got.float(), plain, rtol, atol))
+    check(reading["over_limit"] <= 1.0,
+          f"lm_dryrun: the first decode_attention call differs from the plain version: {reading}")
+    log(f"lm_dryrun real: rank 0 of p = 256, {real['arch']} x {real['shape']}, "
+        f"{real['steps']} steps: decode_attention {want} launches; first call {reading}; "
+        f"arguments {run['arg_bytes']} B on the card; peak {run['max_memory_allocated']} B; "
+        f"step s {[round(x, 4) for x in run['step_s']]}")
+
+    proc, logf, t_child = child
+    try:
+        code = proc.wait(timeout=max(1.0, LM_DRYRUN_CHILD_TIMEOUT
+                                     - (time.perf_counter() - t_child)))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        raise RuntimeError("lm_dryrun: the fake cells' process timed out")
+    finally:
+        logf.close()
+    work = Path(logf.name).parent
+    check(code == 0, f"lm_dryrun: the fake cells' process exited {code}:\n"
+                     f"{(work / 'child.log').read_text()[-4000:]}")
+    walls = json.loads((work / "walls.json").read_text())
+    cells = {}
+    for arch, shape, multi_pod, plan in LM_DRYRUN_CELLS:
+        tag = cell_tag(arch, shape, multi_pod, plan)
+        fail = work / f"{tag}.FAIL"
+        check(not fail.exists(), f"lm_dryrun {tag} failed: "
+                                 f"{fail.read_text()[:2000] if fail.exists() else ''}")
+        rec = json.loads((work / f"{tag}.json").read_text())
+        check(rec["raw_flops_uncorrected"] == rec["flops_per_device"] > 0
+              and rec["arg_bytes"] > 0, f"lm_dryrun {tag}: record {rec}")
+        cells[tag] = rec
+        log(f"lm_dryrun {tag}: arg {rec['arg_bytes']} B, temp {rec['temp_bytes']} B, out "
+            f"{rec['output_bytes']} B; {rec['flops_per_device']:.4e} FLOP, "
+            f"{rec['hbm_bytes_per_device']:.4e} B, link {rec['link_bytes_per_device']:.4e} B "
+            f"a device; {rec['bottleneck']} {rec['bound_s']:.4f} s; useful "
+            f"{rec['useful_flops_frac']:.4f}; {walls[tag]:.1f} s")
+    fake_decode = cells[cell_tag(real["arch"], real["shape"], False, "baseline")]
+    check(fake_decode.get("arg_bytes") == run["arg_bytes"],
+          f"lm_dryrun: the rank's {run['arg_bytes']} B on the card differ from the fake "
+          f"record's arg_bytes {fake_decode.get('arg_bytes')}")
+    real_rec = dict(real, launches=launches, first_call=reading, arg_bytes=run["arg_bytes"],
+                    arg_bytes_equal_fake=True, max_memory_allocated=run["max_memory_allocated"],
+                    fake_temp_bytes=fake_decode["temp_bytes"], step_s=run["step_s"],
+                    start_pos=run["start_pos"], logits_local_shape=run["logits_local_shape"])
+    out = dict(cells=cells, cell_walls_s=walls, real=real_rec,
+               child_wall_s=time.perf_counter() - t_child, launches=launches,
+               phase_s=time.perf_counter() - t_phase, card=smi)
+    log(f"lm_dryrun: phase {out['phase_s']:.1f} s here, the child's cells "
+        f"{sum(walls.values()):.1f} s beside the other phases")
+    return out
+
+
 # -------------------------------------------------------------------- main
 
 
@@ -3463,10 +3658,12 @@ def main(argv=None) -> int:
                     help=argparse.SUPPRESS)  # one rank of the distributed phase's world of 2
     ap.add_argument("--resume-child", type=Path, default=None,
                     help=argparse.SUPPRESS)  # the lm_train phase's resume check
+    ap.add_argument("--lm-dryrun-child", type=Path, default=None,
+                    help=argparse.SUPPRESS)  # the lm_dryrun phase's fake cells
     ap.add_argument("--lm-only", action="store_true",
-                    help="run the build and the three LM phases (serving, families, "
-                         "training) alone (a quick check of those paths; the full run is the "
-                         "script without flags)")
+                    help="run the build, the LM dry-run and the three LM phases (serving, "
+                         "families, training) alone (a quick check of those paths; the full "
+                         "run is the script without flags)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on the card",
@@ -3479,6 +3676,8 @@ def main(argv=None) -> int:
         return dist_child(args.dist_child)
     if args.resume_child is not None:
         return resume_child(args.resume_child)
+    if args.lm_dryrun_child is not None:
+        return lm_dryrun_child(args.lm_dryrun_child)
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -3502,9 +3701,13 @@ def main(argv=None) -> int:
         # host Python that it would slow.
         pool = ThreadPoolExecutor(max_workers=1)
         graph = pool.submit(timed, rmat, num_edges=1 << args.full_log2_edges, **FULL)
+    child_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_lm_dryrun_"))
+    lm_train = None
     try:
         build_s = phase_build()
         record = dict(card=smi, build_s=build_s)
+        # The LM dry-run's fake cells run beside phases 2-5 (host work).
+        lm_dryrun_child_proc = start_lm_dryrun_cells(child_dir)
         kernels = []
         if not args.lm_only:
             record["smoke_kernel_errors"] = phase_kernels(dev)
@@ -3512,6 +3715,10 @@ def main(argv=None) -> int:
             t = time.perf_counter()
             record["baselines"] = phase_baselines(dev)
             record["baselines_s"] = time.perf_counter() - t
+            # The training phase needs no graph: it runs while the generation
+            # thread ends (its figures are the card's: CUDA events a step).
+            lm_train = phase_lm_train(dev)
+            torch.cuda.empty_cache()
             record["full"], kernels = phase_full(dev, graph)
     finally:
         if pool is not None:  # a failed phase leaves the generation to end on its own
@@ -3521,18 +3728,23 @@ def main(argv=None) -> int:
         for e in kernels:  # the dry-run path's launches beside the main path's
             e["dryrun_launches"] = record["graph_dryrun"]["launches"].get(e["name"], 0)
         kernels.append(dryrun_entry)
+    record["lm_dryrun"] = phase_lm_dryrun(dev, lm_dryrun_child_proc, smi)
+    shutil.rmtree(child_dir, ignore_errors=True)
     lm, lm_kernels = phase_lm(dev)
     for e in kernels:  # the LM path's launches beside the main path's
         e["lm_launches"] = lm["launches"].get(e["name"],
                                               lm["launches"].get(e["name"].split(".")[0], 0))
     kernels += lm_kernels
+    for e in kernels:  # the LM dry-run's real rank-0 run
+        e["lm_dryrun_launches"] = record["lm_dryrun"]["launches"].get(e["name"].split(".")[0], 0)
     families, family_kernels = phase_lm_families(dev)
     kernels += family_kernels
     for e in kernels:  # and the lm_families path's, model by model
         kernel = e["name"].split(".")[0]
         e["lm_families_launches"] = {name: rec["launches"].get(kernel, 0)
                                      for name, rec in families.items() if name != "phase_s"}
-    lm_train = phase_lm_train(dev)
+    if lm_train is None:  # --lm-only: last, as the other LM phases
+        lm_train = phase_lm_train(dev)
     for e in kernels:  # the training path's: 0 for every kernel (checked in the phase)
         e["lm_train_launches"] = lm_train["launches"].get(e["name"].split(".")[0], 0)
     check_analysis_after(analysis, bindings, captured=not args.lm_only)
@@ -3553,6 +3765,7 @@ def main(argv=None) -> int:
             "capture_s")}}))
     if "graph_dryrun" in record:
         print(json.dumps({"graph_dryrun": dict(record["graph_dryrun"], card=smi)}))
+    print(json.dumps({"lm_dryrun": lm_dryrun_line(record["lm_dryrun"])}))
     print(json.dumps({"lm_serve": lm_line(lm, smi)}))
     print(json.dumps({"lm_families": families_line(families, smi)}))
     print(json.dumps({"lm_train": train_line(lm_train, smi, total)}))
@@ -3561,6 +3774,20 @@ def main(argv=None) -> int:
                                               "kind": torch.cuda.get_device_name(0),
                                               "count": torch.cuda.device_count()}}))
     return 0
+
+
+def lm_dryrun_line(rec):
+    """The {"lm_dryrun": ...} stdout line: each fake cell's figures (or
+    its failure) and the real rank-0 run."""
+    keys = ("arg_bytes", "temp_bytes", "output_bytes", "flops_per_device",
+            "hbm_bytes_per_device", "link_bytes_per_device", "model_flops_per_device",
+            "useful_flops_frac", "bottleneck", "bound_s", "compute_s", "memory_s",
+            "collective_s", "compile_s")
+    cells = {tag: ({k: c[k] for k in keys} | {"collectives": c["collectives"]}
+                   if "FAIL" not in c else c) for tag, c in rec["cells"].items()}
+    real = {k: v for k, v in rec["real"].items() if k != "launches"}
+    return dict(cells=cells, real=real, launches=rec["launches"], phase_s=rec["phase_s"],
+                child_wall_s=rec["child_wall_s"], card=rec["card"])
 
 
 def lm_line(lm, smi):

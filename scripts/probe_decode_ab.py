@@ -5,11 +5,12 @@ an A/B of two source trees or of the process environment.
     python3 scripts/probe_decode_ab.py [--src DIR] [--label NAME]
 
 Builds the kernels of the `repro_torch` under DIR (default: this
-repository's `src`), then runs `launch.serve.generate` for llama3_2_3b and
-mamba2_780m at their published widths (bf16 weights drawn on the card from
-seed 0, B 8 prompts of 1,024 tokens, 32 greedy tokens) twice each, and
-prints one JSON line: each run's decode ms a token at p50 (CUDA events
-recorded as each step is enqueued) and the process's
+repository's `src`), then runs `launch.serve.generate` for llama3_2_3b,
+phi3_5_moe (16 of its 32 layers: all 32 are ~84 GB in bf16, past an 80 GB
+card) and mamba2_780m at their published widths (bf16 weights drawn on the
+card from seed 0, B 8 prompts of 1,024 tokens, 32 greedy tokens) twice
+each, and prints one JSON line: each run's decode ms a token at p50 (CUDA
+events recorded as each step is enqueued) and the process's
 CUBLAS_WORKSPACE_CONFIG. Run it in one call once a process for each side,
 in turns, e.g. another commit unpacked by `git archive` into build/parent:
 
@@ -17,6 +18,7 @@ in turns, e.g. another commit unpacked by `git archive` into build/parent:
     CUBLAS_WORKSPACE_CONFIG=:4096:8 python3 scripts/probe_decode_ab.py --label cublas_cfg
 """
 import argparse
+import dataclasses
 import json
 import os
 import sys
@@ -24,6 +26,8 @@ from pathlib import Path
 
 import numpy as np
 import torch
+
+LAYERS = {"phi3_5_moe": 16}  # the depth cut of a config past the card's memory
 
 
 def main() -> int:
@@ -45,8 +49,10 @@ def main() -> int:
     out = {"label": args.label, "src": str(args.src),
            "cublas_workspace_config": os.environ.get("CUBLAS_WORKSPACE_CONFIG"),
            "card": torch.cuda.get_device_name(0)}
-    for name in ("llama3_2_3b", "mamba2_780m"):
+    for name in ("llama3_2_3b", "phi3_5_moe", "mamba2_780m"):
         cfg = configs.get_config(name)
+        if name in LAYERS:
+            cfg = dataclasses.replace(cfg, n_layers=LAYERS[name])
         params = transformer.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                                          torch.bfloat16)
         prompt = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, (8, 1024)))

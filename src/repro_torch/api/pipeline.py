@@ -191,10 +191,14 @@ class BSPPlan:
     in order, as (kind, output bytes, group size): the forward and the
     broadcast all-to-all of `engine._a2a_exchange` (f32 values), then the
     convergence collective (an all-reduce of one int32 for no-change
-    programs; an all-gather of the p f32 deltas for tol programs). `final`:
-    the runner's own assembly, one all-gather of every rank's values and
-    stats (the reference returns sharded values instead); it is kept out
-    of the link bytes a superstep. `pass_bytes` / `pass_flops`: one local
+    programs; an all-gather of the p f32 deltas for tol programs). `setup`:
+    the 2^24 guard's all-reduce of the world's bound (int32 programs: one
+    int64 for the largest value or id, one a rank for its covered
+    vertices), ahead of the loop. `final`: the all-reduce of the kernels'
+    id flag (one int32) after it. The runner returns its rank's rows, as
+    the reference's does; their assembly (`runner.gather`) is the
+    caller's. The set-up and the final collectives are kept out of the
+    link bytes a superstep. `pass_bytes` / `pass_flops`: one local
     pass of the kernel over this rank's rows, each input read once and each
     output written once (the stream as `engine._run_plan` pads it, lsrc,
     ldst and an f32 weight, 12 B an edge; the values in and out; the
@@ -206,6 +210,7 @@ class BSPPlan:
     arrays: dict
     reads: tuple
     values: int
+    setup: tuple
     superstep: tuple
     final: tuple
     stream_edges: int
@@ -222,21 +227,24 @@ class BSPPlan:
 
     def records(self, supersteps: int) -> list:
         """The collectives of a run of `supersteps` supersteps, in order."""
-        return list(self.superstep) * supersteps + list(self.final)
+        return list(self.setup) + list(self.superstep) * supersteps + list(self.final)
 
     def collectives(self, supersteps: int = 1, final: bool = False) -> CollectiveSummary:
-        return summarize_collectives(list(self.superstep) * supersteps
-                                     + (list(self.final) if final else []))
+        """`supersteps` supersteps' collectives; with `final`, the whole
+        run's (the set-up and the final ones too)."""
+        return summarize_collectives(self.records(supersteps) if final
+                                     else list(self.superstep) * supersteps)
 
     @property
     def link_bytes_per_superstep(self) -> float:
         return self.collectives().total_link_bytes
 
 
-def plan_bsp(spec: SubgraphSpec, prog: VertexProgram, ranks: int, *, num_supersteps: int,
+def plan_bsp(spec: SubgraphSpec, prog: VertexProgram, ranks: int, *,
              block_e: int = 512) -> BSPPlan:
     """The `BSPPlan` of one rank of `ranks` holding p/ranks subgraphs of
-    `spec` under the distributed stepper of `prog`."""
+    `spec` under the distributed stepper of `prog` (a superstep's figures:
+    a run's count enters through `BSPPlan.records(supersteps)`)."""
     prog = get_program(prog)
     p, m, n = spec.num_parts, spec.max_msg, spec.max_v + 1
     if p % ranks:
@@ -248,15 +256,15 @@ def plan_bsp(spec: SubgraphSpec, prog: VertexProgram, ranks: int, *, num_superst
     exchange = ("all-to-all", 4 * p * nloc * m, ranks)
     converge = (("all-gather", 4 * p, ranks) if prog.convergence == "tol"
                 else ("all-reduce", 4, ranks))
-    pack = nloc * n + 2 * num_supersteps * nloc + 1  # int32 words a rank
-    final = (("all-gather", 4 * ranks * pack, ranks),)
+    setup = (("all-reduce", 8 * (ranks + 1), ranks),) if prog.dtype == "int32" else ()
+    final = (("all-reduce", 4, ranks),)
     E = spec.max_e * (2 if prog.local == "fixpoint" and prog.bidirectional else 1)
     blk = max(min(block_e, E), 1)
     E += (-E) % blk  # ops.pad_stream
     per_row = 12 * E + 8 * n + 4 + (4 * n if prog.local == "sweep" else 0)
     return BSPPlan(
         program=prog.name, ranks=ranks, rows=nloc, arrays=arrays, reads=superstep_reads(prog),
-        values=4 * nloc * n, superstep=(exchange, exchange, converge), final=final,
+        values=4 * nloc * n, setup=setup, superstep=(exchange, exchange, converge), final=final,
         stream_edges=E, pass_bytes=nloc * per_row, pass_flops=2 * nloc * E,
     )
 
@@ -266,10 +274,11 @@ class LoweredBSP:
     """One rank's distributed BSP stepper and its plan (`GraphPipeline.lower`).
 
     `stepper` is the runner of `engine.make_distributed_stepper`, called
-    with the whole set's arrays and initial values; `rows` the slice of
-    subgraphs this rank holds; `compile_s` lower's wall. PyTorch compiles
-    nothing here: the CUDA kernels are built by `kernels.dispatch`, and the
-    runner cuts its rows and plans their stream at its first call."""
+    with this rank's rows of the arrays and initial values (`rows`, the
+    slice of subgraphs this rank holds) and returning its rows; `compile_s`
+    lower's wall. PyTorch compiles nothing here: the CUDA kernels are built
+    by `kernels.dispatch`, and the runner copies its rows and plans their
+    stream at its first call."""
 
     spec: SubgraphSpec
     program: str
@@ -531,7 +540,10 @@ class GraphPipeline:
         # Rank compression is order-preserving, so it commutes with the
         # stepper's max→min negation; the output decodes below.
         init, codec = _kernel_value_boundary(prog, sub, init)
-        val, _, steps, msgs_steps, iters_steps = stepper(arrays, init)
+        # The stepper runs on this rank's rows; the whole set is assembled here.
+        r = stepper.rows
+        out = stepper({k: a[r] for k, a in arrays.items()}, init[r])
+        val, _, steps, msgs_steps, iters_steps = stepper.gather(out)
         if codec is not None:
             val = codec.decode(val.to(sub.device))
         edges = as_numpy(sub.edge_mask.sum(dim=1)).astype(np.int64)
@@ -623,7 +635,7 @@ class GraphPipeline:
             tol=tol, num_vertices=nv, block_e=block_e,
         )
         _, rank, w = axes_group(mesh, axes)
-        plan = plan_bsp(spec, prog, w, num_supersteps=num_supersteps, block_e=block_e)
+        plan = plan_bsp(spec, prog, w, block_e=block_e)
         return LoweredBSP(
             spec=spec, program=prog.name, mesh=mesh, axes=axes, stepper=stepper,
             rows=slice(rank * plan.rows, (rank + 1) * plan.rows),

@@ -1364,16 +1364,20 @@ def make_distributed_stepper(
     """A BSP runner for ANY `VertexProgram` with the subgraphs sharded over
     the ranks of the mesh dimensions `axes` (one name, or a tuple naming
     every dimension of a mesh over the whole world, in order): w ranks,
-    w dividing p, rank r holding the contiguous parts [r·p/w, (r+1)·p/w).
+    w dividing p, rank r holding the contiguous parts [r·p/w, (r+1)·p/w)
+    (`runner.rows`).
 
-    The returned `runner(arrays, val)` is called on every rank with the
-    whole set's arrays (`subgraphs_to_arrays`, on any device) and initial
-    values [p, max_v+1] in the program's own domain; it copies its rows to
-    its mesh device (cached for the next call with the same arrays) and
-    returns, on every rank and on the host, what the reference's runner
-    returns: (values [p, max_v+1], msgs_total [p], steps, msgs_per_step
-    [num_supersteps, p], iters_per_step [num_supersteps, p]), the buffers
-    zero past `steps`.
+    The returned `runner(arrays, val)` is called on every rank with this
+    rank's rows of the arrays (`subgraphs_to_arrays`, cut by `runner.rows`,
+    on any device) and of the initial values [p/w, max_v+1] in the
+    program's own domain; it copies them to its mesh device (the arrays'
+    copy cached for the next call with the same arrays) and returns this
+    rank's rows of what the reference's runner returns, as its shard_map
+    does: (values [p/w, max_v+1], msgs_total [p/w], steps, msgs_per_step
+    [num_supersteps, p/w], iters_per_step [num_supersteps, p/w]), on the
+    mesh device, the buffers zero past `steps`. `runner.gather(out)`
+    assembles the whole set's on every rank and on the host (one
+    all_gather): what `GraphPipeline.run(mode="dist")` returns.
 
     Each superstep is the simulation's `_superstep` on the local rows with
     the exchange an all_to_all_single over the mesh group (only the f32
@@ -1383,19 +1387,22 @@ def make_distributed_stepper(
     simulation's order (`l1_total`) against `tol` (tol programs), so every
     rank takes the same trip count as the simulation would. The host
     reads that flag once a superstep (none for a tol program with tol=0),
-    and one all_gather at the end assembles the values, the stats and the
-    kernels' id flags. The kernels run as everywhere: CUDA on the card, the
-    plain versions on the CPU. Max-combine programs are negated in and out
-    here, and int32 programs remapped to f32 once a run, after the 2^24
-    guard (flat addressing: the global ids; two-level: the carry's value
-    bound, plus the covered vertices for unit weights), which raises before
-    any collective.
+    and one all_reduce(MAX) at the end hands every rank the kernels' id
+    flag, so that all raise together. The kernels run as everywhere: CUDA
+    on the card, the plain versions on the CPU. Max-combine programs are
+    negated in and out here, and int32 programs remapped to f32 once a
+    run, after the 2^24 guard: each rank bounds its own rows (flat
+    addressing: the global ids; two-level: the carry's value bound, plus
+    the covered vertices for unit weights), and one all_reduce(MAX) ahead
+    of the loop hands every rank the world's bound (the largest, and each
+    rank's covered count in a slot of its own, summed), so every rank
+    raises before any other collective.
 
     `fault_plan=` (a `repro_torch.resilience.FaultPlan` with
     `crash_at_superstep=s`) caps the loop at s supersteps and raises
     `WorkerCrashError(superstep=s)` if it was still running then.
     `runner.shard(arrays)` is the `SubgraphSet` of this rank's rows that
-    the runner cuts from (and caches for) those arrays.
+    the runner copies (and caches) from those arrays.
     """
     prog = get_program(prog)
     check_pagerank_num_vertices(prog, num_vertices)
@@ -1415,28 +1422,50 @@ def make_distributed_stepper(
     exchange = _a2a_exchange(group, w)
     addressing = statics.get("addressing", "two_level")
     n = int(statics["max_v"]) + 1
-    shard_cache: list = []  # [(the arrays it was cut from, the shard)]
+    shard_cache: list = []  # [(the arrays it was copied from, the shard)]
 
     def shard(arrays: dict) -> SubgraphSet:
         held = tuple(arrays[k] for k in _ARRAY_FIELDS)
         if not (shard_cache and all(a is b for a, b in zip(shard_cache[0][0], held))):
-            cut = {k: torch.as_tensor(a)[rows].to(dev).contiguous()
+            bad = [(k, a.shape[0]) for k, a in zip(_ARRAY_FIELDS, held) if a.shape[0] != nloc]
+            if bad:
+                raise ValueError(f"the runner takes this rank's {nloc} rows of each array "
+                                 f"(runner.rows = {rows}); {bad[0][0]} has {bad[0][1]}")
+            cut = {k: torch.as_tensor(a).to(dev).contiguous()
                    for k, a in zip(_ARRAY_FIELDS, held)}
             shard_cache[:] = [(held, SubgraphSet(**cut, **statics))]
         return shard_cache[0][1]
 
+    def guard(arrays: dict, val: torch.Tensor) -> None:
+        """The 2^24 guard over the world, before any other collective."""
+        if prog.dtype != "int32":
+            return
+        word = torch.zeros((w + 1,), dtype=torch.int64)
+        if addressing == "flat":
+            gid = torch.as_tensor(arrays["gid"])
+            word[0] = int(gid.max()) if gid.numel() else 0
+        else:
+            mag = val.abs()
+            word[0] = int(torch.where(mag != INF_I32, mag, 0).max()) if val.numel() else 0
+            if prog.weight == "unit":
+                word[1 + rank] = int(torch.as_tensor(arrays["is_master"]).sum())
+        word = word.to(dev)
+        dist.all_reduce(word, op=dist.ReduceOp.MAX, group=group)
+        HOST_SYNCS["dist"] += 1
+        word = word.tolist()
+        if addressing == "flat":
+            check_int32_kernel_gid(prog, torch.tensor(word[0]))
+        else:
+            check_int32_kernel_values(prog, word[0] + sum(word[1:]))
+
     def runner(arrays: dict, val):
         val = torch.as_tensor(val)
-        if addressing == "flat":
-            check_int32_kernel_gid(prog, torch.as_tensor(arrays["gid"]))
-        elif prog.dtype == "int32":
-            mag = val.abs()
-            bound = int(torch.where(mag != INF_I32, mag, 0).max()) if val.numel() else 0
-            if prog.weight == "unit":
-                bound += int(torch.as_tensor(arrays["is_master"]).sum())
-            check_int32_kernel_values(prog, bound)
+        if val.shape[0] != nloc:
+            raise ValueError(f"the runner takes this rank's {nloc} rows of the values "
+                             f"(runner.rows = {rows}); got {val.shape[0]}")
+        guard(arrays, val)
         sub = shard(arrays)
-        v = val[rows].to(dev)
+        v = val.to(dev)
         v = -v if negate else v
         if prog.dtype == "int32":
             v = _to_f32(v)
@@ -1446,33 +1475,41 @@ def make_distributed_stepper(
         )
         if prog.dtype == "int32":
             out = _to_i32(out)
-        # One all_gather assembles every rank's rows, stats and id flag.
-        words = out.view(torch.int32) if out.dtype == torch.float32 else out
-        pack = torch.cat([words.reshape(-1), msgs.reshape(-1), iters.reshape(-1), bad])
-        gathered = [torch.empty_like(pack) for _ in range(w)]
-        dist.all_gather(gathered, pack, group=group)
+        # Every rank learns whether any rank's kernels flagged an id.
+        bad = bad.clone()
+        dist.all_reduce(bad, op=dist.ReduceOp.MAX, group=group)
         HOST_SYNCS["dist"] += 1
-        allp = torch.stack(gathered).cpu()
-        nv, ns = nloc * n, num_supersteps * nloc
-        vals = allp[:, :nv].contiguous().view(out.dtype).reshape(p, n)
-
-        def per_step(a):  # [w, S·nloc] → [S, p]
-            return a.reshape(w, num_supersteps, nloc).permute(1, 0, 2).reshape(num_supersteps, p)
-
-        msgs_sp, iters_sp = per_step(allp[:, nv:nv + ns]), per_step(allp[:, nv + ns:nv + 2 * ns])
-        bits = 0
-        for b in allp[:, -1].tolist():
-            bits |= b
         plan = _plan_for(exec_prog, sub, block_e)
-        check_flag(bits, plan.lsrc, plan.ldst, plan.num_out)
+        check_flag(bad, plan.lsrc, plan.ldst, plan.num_out)
         if crash_at is not None and steps >= crash_at:
             # The loop was still running when the doomed superstep came due.
             from repro_torch.resilience.faults import WorkerCrashError
 
             raise WorkerCrashError(superstep=crash_at)
-        return (-vals if negate else vals), msgs_sp.sum(dim=0), steps, msgs_sp, iters_sp
+        return (-out if negate else out), msgs.sum(dim=0), steps, msgs, iters
+
+    def gather(out) -> tuple:
+        """The whole set's (values [p, n], msgs_total [p], steps,
+        msgs_per_step [S, p], iters_per_step [S, p]) on the host, from
+        every rank's `runner` output (one all_gather)."""
+        vals, _, steps, msgs, iters = out
+        words = vals.view(torch.int32) if vals.dtype == torch.float32 else vals
+        pack = torch.cat([words.reshape(-1), msgs.reshape(-1), iters.reshape(-1)])
+        gathered = [torch.empty_like(pack) for _ in range(w)]
+        dist.all_gather(gathered, pack, group=group)
+        allp = torch.stack(gathered).cpu()
+        nv, ns = nloc * n, num_supersteps * nloc
+        whole = allp[:, :nv].contiguous().view(vals.dtype).reshape(p, n)
+
+        def per_step(a):  # [w, S·nloc] → [S, p]
+            return a.reshape(w, num_supersteps, nloc).permute(1, 0, 2).reshape(num_supersteps, p)
+
+        msgs_sp, iters_sp = per_step(allp[:, nv:nv + ns]), per_step(allp[:, nv + ns:])
+        return whole, msgs_sp.sum(dim=0), steps, msgs_sp, iters_sp
 
     runner.shard = shard
+    runner.rows = rows
+    runner.gather = gather
     return runner
 
 

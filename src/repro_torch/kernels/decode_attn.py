@@ -22,13 +22,30 @@ on the same stream. A wider head_dim runs on `csrc/decode_attn_wide.cu`
 (`kernel_source`): scores, softmax and output in three simple launches
 through an f32 workspace [B, Hq, end - start]; no size is refused. Each
 call counts once in `LAUNCHES` as "decode_attention".
+
+The wrapper calls the custom op `torch.ops.repro_torch.decode_attention`
+(`torch.library.custom_op`), whose implementation is the dispatch above;
+on plain tensors with no dispatch mode active it calls that implementation
+itself and skips the op's own dispatch. Through the op, it also takes what
+a ctypes call cannot: fake tensors (its
+`register_fake`: an output shaped as q, in q's dtype), a `FlopCounterMode`
+(4·B·Hq·(end − start)·D: the two products), and DTensors, through its
+sharding rule (`_sharding`): the batch over any mesh dimension, or the kv
+heads with the query heads following them (query head h·G + g sits with
+kv head h, so a contiguous split of Hq matches one of Hkv when Hkv divides
+evenly: `_whole_head_groups` drops every layout whose head shards do not).
+Any other layout (a cache sharded on its sequence dim, heads that do not
+divide) is gathered to one of those first, by DTensor, as a collective of
+the run.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
+from torch.utils._python_dispatch import _get_current_dispatch_mode
 
 from repro_torch.kernels.dispatch import (
     LAUNCHES,
@@ -127,10 +144,99 @@ def decode_attention(q, k, v, *, softcap: float = 0.0, start: int = 0, end=None)
     check_tensor("q", q, q.dtype, (B, Hq, D), dev)
     check_tensor("k", k, k.dtype, (B, S, Hkv, D), dev)
     check_tensor("v", v, k.dtype, (B, S, Hkv, D), dev)
-    if dev.type == "cpu":
-        return decode_attention_plain(q, k[:, start:end], v[:, start:end], softcap=softcap)
-    if dev.type != "cuda":
+    if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"decode_attention runs on CPU or CUDA tensors, got {dev}")
+    if type(q) is torch.Tensor and _get_current_dispatch_mode() is None:
+        # Plain tensors and no dispatch mode: the op's body without the op's
+        # dispatch (tens of µs a call, on a decode step bound by the host).
+        return _decode_attention_impl(q, k, v, float(softcap), start, end)
+    return torch.ops.repro_torch.decode_attention(q, k, v, float(softcap), start, end)
+
+
+def _decode_attention_impl(q, k, v, softcap: float, start: int, end: int) -> torch.Tensor:
+    """The op on checked arguments: the plain version on the CPU, the CUDA
+    kernel on the card."""
+    if q.device.type == "cpu":
+        return decode_attention_plain(q, k[:, start:end], v[:, start:end], softcap=softcap)
+    if q.device.type != "cuda":
+        raise ValueError(f"decode_attention runs on CPU or CUDA tensors, got {q.device}")
+    return _decode_attention_cuda(q, k, v, softcap, start, end)
+
+
+@torch.library.custom_op("repro_torch::decode_attention", mutates_args=())
+def _decode_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, softcap: float,
+                         start: int, end: int) -> torch.Tensor:
+    return _decode_attention_impl(q, k, v, softcap, start, end)
+
+
+@_decode_attention_op.register_fake
+def _(q, k, v, softcap, start, end):
+    return torch.empty_like(q)
+
+
+def _flops(q_shape, k_shape, v_shape, softcap, start, end, *args, **kwargs) -> int:
+    """q·k and the weighted sum of v: 2 operations each a key, head and dim."""
+    B, Hq, D = q_shape
+    return 4 * B * Hq * (end - start) * D
+
+
+def _sharding(q, k, v, softcap, start, end):
+    """The layouts the op runs on unchanged, one mesh dimension at a time:
+    all replicated; the batch sharded; or the kv heads sharded (dim 2 of k
+    and v) with the query heads (dim 1 of q) following them."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    rest = [None, None, None]
+    return [([Replicate()], [Replicate()] * 3 + rest),
+            ([Shard(0)], [Shard(0)] * 3 + rest),
+            ([Shard(1)], [Shard(1), Shard(2), Shard(2)] + rest)]
+
+
+def _whole_head_groups(expand, op_schema):
+    """`expand`'s layouts (`_sharding` over every mesh dimension) less
+    those that split the kv heads unevenly. DTensor cuts an uneven dim in
+    chunks of ceil(H/n), and ceil(G·Hkv/n) ≠ G·ceil(Hkv/n) then (Hkv 6 and
+    Hq 12 over 4: kv chunks of 2, query chunks of 3), so a rank's query
+    heads would not be those of its kv heads. Kept: Hkv divisible by the
+    product of the mesh dims its heads are split over."""
+    from torch.distributed.tensor import Shard
+
+    strategy = expand(op_schema)
+    hkv = op_schema.args_schema[1].shape[2]
+
+    def whole(spec) -> bool:
+        return hkv % math.prod(spec.mesh.size(i) for i, p in enumerate(spec.placements)
+                               if p == Shard(2)) == 0
+
+    strategy.strategies = [s for s in strategy.strategies if whole(s.input_specs[1])]
+    return strategy
+
+
+def _register() -> None:
+    from torch.utils.flop_counter import register_flop_formula
+
+    op = torch.ops.repro_torch.decode_attention
+    register_flop_formula(op)(_flops)
+    try:
+        from torch.distributed.tensor import DTensor
+        from torch.distributed.tensor.experimental import register_sharding
+    except ImportError:  # a PyTorch built without distributed
+        return
+    register_sharding(op.default)(_sharding)
+    # register_sharding expands `_sharding` to every mesh dimension on its
+    # own; the filter that keeps head groups whole wraps that expansion.
+    funcs = DTensor._op_dispatcher.sharding_propagator.op_strategy_funcs
+    funcs[op.default] = functools.partial(_whole_head_groups, funcs[op.default])
+
+
+_register()
+
+
+def _decode_attention_cuda(q, k, v, softcap, start, end):
+    """The CUDA launch of `csrc/decode_attn.cu` (or the wide source), on
+    checked arguments."""
+    (B, Hq, D), (S, Hkv) = q.shape, k.shape[1:3]
+    dev = q.device
     G = Hq // Hkv
     if kernel_source(D) == "decode_attn_wide":
         return _decode_attention_wide(q, k, v, softcap, start, end)

@@ -130,7 +130,8 @@ def lowered_dryrun(*, multi_pod: bool = False, num_supersteps: int = 4, inner_ca
 
 @dataclasses.dataclass
 class DryRun:
-    """What one run of a lowered stepper on its arrays gave: its outputs,
+    """What one run of a lowered stepper on its arrays gave: its outputs
+    (this rank's rows),
     the collectives it recorded, its wall a superstep (CUDA events on the
     card, the host clock on the CPU), the launches, the device bytes of this
     rank's arguments and the allocator's peak."""
@@ -147,7 +148,8 @@ class DryRun:
 
 
 def run_lowered(low, arrays, init) -> DryRun:
-    """Run `low.stepper` once on (arrays, init) under `record_collectives`."""
+    """Run `low.stepper` once on this rank's rows (`low.rows`) of the whole
+    set's (arrays, init) under `record_collectives`."""
     dev = arrays["lsrc"].device
     cuda = dev.type == "cuda"
     before = dict(dispatch.LAUNCHES)
@@ -157,19 +159,21 @@ def run_lowered(low, arrays, init) -> DryRun:
         start = torch.cuda.Event(enable_timing=True)
         start.record()
     t0 = time.perf_counter()
+    mine = {k: a[low.rows] for k, a in arrays.items()}
     with record_collectives() as rec:
-        val, _, steps, _, iters = low.stepper(arrays, init)
+        val, _, steps, _, iters = low.stepper(mine, init[low.rows])
     if cuda:
         torch.cuda.synchronize(dev)
     # Each superstep ends with its convergence collective (the third).
-    ends = [r for i, r in enumerate(rec.records[:3 * steps]) if i % 3 == 2]
+    first = len(low.plan.setup)
+    ends = [r for i, r in enumerate(rec.records[first:first + 3 * steps]) if i % 3 == 2]
     if cuda:
         marks = [start] + [r.event for r in ends]
         superstep_ms = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
     else:
         marks = [t0] + [r.host_s for r in ends]
         superstep_ms = [1e3 * (b - a) for a, b in zip(marks, marks[1:])]
-    sub = low.stepper.shard(arrays)
+    sub = low.stepper.shard(mine)
     rows = low.rows.stop - low.rows.start
     held = sum(getattr(sub, k).numel() * getattr(sub, k).element_size() for k in ARRAY_FIELDS)
     launches = {k: v - before.get(k, 0) for k, v in dispatch.LAUNCHES.items()
@@ -208,7 +212,8 @@ def run_graph_dryrun(
     `compute_backend`): `arg_bytes`, `flops_per_device` and
     `hbm_bytes_per_device` from the plan (shapes: one local pass),
     `link_bytes_per_device` (a superstep) and `collectives` (the whole run,
-    the final gather included) from the recorded run, `temp_bytes` from the
+    the guard's and the id flag's all-reduces included) from the recorded
+    run, `temp_bytes` from the
     allocator's peak less `arg_bytes` (None on the CPU); and what the run
     measured beside them."""
     spec_p = get_partitioner(partitioner)
@@ -225,7 +230,8 @@ def run_graph_dryrun(
         dev = arrays["lsrc"].device
     plan, p = low.plan, low.spec.num_parts
     recorded = summarize_collectives(run.records)
-    per_step = summarize_collectives(run.records[:3 * run.steps])
+    first = len(plan.setup)
+    per_step = summarize_collectives(run.records[first:first + 3 * run.steps])
     link = per_step.total_link_bytes / max(run.steps, 1)
     flops, hbm = float(plan.pass_flops), float(plan.pass_bytes)
     friendster = low.spec == friendster_spec(p)
@@ -256,13 +262,13 @@ def run_graph_dryrun(
         supersteps=run.steps,
         superstep_ms=run.superstep_ms,
         # The first superstep also pays the runner's set-up: the 2^24 guard
-        # over the whole set's values, the shard's run plan, the
-        # allocator's first blocks.
+        # over this rank's values and its all-reduce, the shard's run plan,
+        # the allocator's first blocks.
         first_superstep_ms=run.superstep_ms[0] if run.superstep_ms else None,
         ms_per_superstep=(sum(run.superstep_ms[1:]) / (len(run.superstep_ms) - 1)
                           if len(run.superstep_ms) > 1 else None),
         clock=run.clock,
-        inner_iters_per_superstep=run.iters[:run.steps, low.rows.start].tolist(),
+        inner_iters_per_superstep=run.iters[:run.steps, 0].tolist(),
         bsp_superstep_launches=run.launches.get(
             "bsp_superstep.sum" if engine.get_program(program).local == "sweep"
             else "bsp_superstep.min", 0),

@@ -116,11 +116,23 @@ class _FakeExchange(TorchDispatchMode):
     """Gives the fake backend's all-to-all one meaning on every PyTorch: its
     receive buffer becomes the send buffer (PyTorch 2.13's fake backend
     copies it; 2.11's leaves the receive buffer as it was, whatever memory
-    it held). Every other op passes through."""
+    it held). DTensor's functional collectives get the same: an all-gather
+    fills every slot with this rank's input, a reduce-scatter hands this
+    rank the first piece of its own input, an all-to-all and an all-reduce
+    hand back the input. Every other op passes through."""
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
+        if func.namespace == "_c10d_functional" and isinstance(out, torch.Tensor):
+            name, src = func._overloadpacket.__name__, args[0]
+            if name == "all_gather_into_tensor":
+                out.view(-1, *src.shape[1:]).unflatten(0, (-1, src.shape[0])).copy_(src)
+            elif name == "reduce_scatter_tensor":
+                out.copy_(src[:out.shape[0]])
+            elif name in ("all_to_all_single", "all_reduce"):
+                out.copy_(src.reshape(out.shape))
+            return out
         if func.namespace == "c10d" and func._overloadpacket.__name__ in ("alltoall_base_",
                                                                           "alltoall_"):
             bound = dict(zip((a.name for a in func._schema.arguments), args))

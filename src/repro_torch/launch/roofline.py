@@ -45,6 +45,16 @@ _C10D_KINDS = {
     "alltoall_base_": ("all-to-all", "output"),
     "send": ("collective-permute", "tensors"),
 }
+# The functional collectives DTensor issues (`torch.ops._c10d_functional`),
+# under the same kind names; their output is the op's return value. The
+# `wait_tensor` that completes each moves nothing and is left out.
+_FUNCTIONAL_KINDS = {
+    "all_gather_into_tensor": "all-gather",
+    "reduce_scatter_tensor": "reduce-scatter",
+    "all_reduce": "all-reduce",
+    "all_to_all_single": "all-to-all",
+}
+COLLECTIVE_NAMESPACES = ("c10d", "_c10d_functional")
 
 
 def _tensor_bytes(x) -> int:
@@ -120,37 +130,55 @@ def summarize_collectives(records: Iterable) -> CollectiveSummary:
     return CollectiveSummary(total_link_bytes=total, per_op=per_op)
 
 
+def _group_size(group) -> int:
+    """The size of a functional collective's group: its registered name, or
+    the group itself."""
+    if isinstance(group, str):
+        from torch.distributed.distributed_c10d import _resolve_process_group
+
+        group = _resolve_process_group(group)
+    return group.size()
+
+
 class _Recorder(TorchDispatchMode):
     """Sees every op dispatched while it is on the mode stack and keeps the
-    `torch.ops.c10d` collectives (barriers move no data and are left out)."""
+    collectives: the `torch.ops.c10d` ops (barriers move no data and are
+    left out) and the functional ones DTensor issues
+    (`torch.ops._c10d_functional`, but `wait_tensor`)."""
 
-    def __init__(self):
+    def __init__(self, events: bool = True):
         super().__init__()
         self.records: list[Collective] = []
+        self.events = events  # a CUDA event after each collective on CUDA tensors
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
-        if func.namespace == "c10d":
-            self._record(func, args, kwargs)
+        if func.namespace in COLLECTIVE_NAMESPACES:
+            self._record(func, args, kwargs, out)
         return out
 
-    def _record(self, func, args, kwargs):
+    def _record(self, func, args, kwargs, out=None):
         from torch._C._distributed_c10d import ProcessGroup
 
         name = func._overloadpacket.__name__
-        if name in ("barrier", "monitored_barrier_"):
+        if name in ("barrier", "monitored_barrier_", "wait_tensor"):
             return
         bound = dict(zip((a.name for a in func._schema.arguments), args))
         bound.update(kwargs)
-        kind, out_arg = _C10D_KINDS.get(name, (name, "tensors"))
-        value = bound.get(out_arg, bound.get("tensors"))
-        group = ProcessGroup.unbox(bound["process_group"]).size()
+        if func.namespace == "_c10d_functional":
+            kind, value = _FUNCTIONAL_KINDS.get(name, name), out
+            group = (int(bound["group_size"]) if "group_size" in bound
+                     else _group_size(bound["group_name"]))
+        else:
+            kind, out_arg = _C10D_KINDS.get(name, (name, "tensors"))
+            value = bound.get(out_arg, bound.get("tensors"))
+            group = ProcessGroup.unbox(bound["process_group"]).size()
         event = None
         first = value
         while isinstance(first, (list, tuple)) and first:
             first = first[0]
-        if isinstance(first, torch.Tensor) and first.is_cuda:
+        if self.events and isinstance(first, torch.Tensor) and first.is_cuda:
             event = torch.cuda.Event(enable_timing=True)
             event.record()
         self.records.append(Collective(kind, _tensor_bytes(value), group, name,
@@ -165,7 +193,8 @@ def record_collectives():
     """Record every collective made through `torch.distributed` while the
     block runs (any backend: NCCL, gloo, the fake world of
     `launch.mesh.fake_world`): a `TorchDispatchMode` over the
-    `torch.ops.c10d` ops, so the engine needs no hook. Yields the recorder:
+    `torch.ops.c10d` ops and DTensor's functional collectives, so the
+    engine needs no hook. Yields the recorder:
     `.records` (a list of `Collective`) and `.summary()`."""
     rec = _Recorder()
     with rec:

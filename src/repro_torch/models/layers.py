@@ -40,6 +40,7 @@ from torch import nn
 
 from repro_torch.kernels import decode_attn as _attn
 from repro_torch.kernels import ops
+from repro_torch.models import pspec
 from repro_torch.models.config import ModelConfig
 
 NEG_INF = -2.0e38
@@ -83,9 +84,11 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
     if positions.ndim == 2:
         angles = positions[..., None].float() * freqs  # [B, S, D/2]
     else:
-        # M-RoPE: frequency bands partitioned into (t, h, w) sections.
-        sec = torch.repeat_interleave(torch.arange(3, device=x.device),
-                                      torch.tensor(mrope_sections, device=x.device))
+        # M-RoPE: frequency bands partitioned into (t, h, w) sections (the
+        # band's stream index made on the host: a shape-only run has no
+        # values to size a repeat_interleave by).
+        sec = torch.tensor([i for i, n in enumerate(mrope_sections) for _ in range(n)],
+                           device=x.device)
         pos = positions[sec]  # [D/2, B, S]: the positional stream of each band
         angles = pos.movedim(0, -1).float() * freqs  # [B, S, D/2]
     sin, cos = torch.sin(angles)[:, :, None, :], torch.cos(angles)[:, :, None, :]
@@ -154,10 +157,39 @@ class MLP(nn.Module):
         self.w_out = _param(f, d, **kw)
 
 
-def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """einsum("bsd,dhk->bshk", x, w) as one matrix product."""
+def _project(x: torch.Tensor, w: torch.Tensor, heads_tp: bool = False) -> torch.Tensor:
+    """einsum("bsd,dhk->bshk", x, w) as one matrix product. Sharded
+    (`pspec.activation_axes`, DTensors), the product's [H·hd] columns are
+    laid out first, over `tp` when `heads_tp` (whole heads a shard), else
+    whole, so that splitting them into [H, hd] keeps every head on one
+    rank."""
     B, S, d = x.shape
-    return (x @ w.reshape(d, -1)).reshape(B, S, *w.shape[1:])
+    if pspec.axes() is None:
+        return (x @ w.reshape(d, -1)).reshape(B, S, *w.shape[1:])
+    x = pspec.constrain(x, "dp", "sp", None)
+    w2 = pspec.layout(w.reshape(d, -1), None, "tp" if heads_tp else None)
+    y = pspec.constrain(x @ w2, "dp", "sp", "tp" if heads_tp else None)
+    return y.reshape(B, S, *w.shape[1:])
+
+
+def _write_cache(cache_t: torch.Tensor, new: torch.Tensor, pos: int, end: int) -> None:
+    """cache_t[:, pos:end] = new, in place. On a DTensor cache each rank
+    writes the keys of its own shard of the sequence dim (the reference's
+    `cache_specs` shard it when the kv heads do not divide the model axis)
+    into its local tensor; `new` is laid out as the cache is first."""
+    if not pspec.is_dtensor(cache_t):
+        cache_t[:, pos:end] = new.to(cache_t.dtype)
+        return
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh, pl = cache_t.device_mesh, cache_t.placements
+    whole = [Replicate() if isinstance(p, Shard) and p.dim == 1 else p for p in pl]
+    src = new.to(cache_t.dtype).redistribute(mesh, whole).to_local()
+    local = cache_t.to_local()
+    lo = pspec.shard_index(cache_t, 1)[0] * local.shape[1]
+    a, b = max(pos, lo), min(end, lo + local.shape[1])
+    if a < b:
+        local[:, a - lo:b - lo] = src[:, a - pos:b - pos]
 
 
 def attention(
@@ -174,12 +206,14 @@ def attention(
     B, S, _ = x.shape
     H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
 
-    q = _project(x, p.wq)
+    heads_tp = pspec.fits(Hkv, "tp")  # the query heads follow the kv heads
+    q = _project(x, p.wq, heads_tp)
     src = x if kv_x is None else kv_x
-    k = _project(src, p.wk)
-    v = _project(src, p.wv)
-    if cfg.qkv_bias:
-        q, k, v = q + p.bq, k + p.bk, v + p.bv
+    k = _project(src, p.wk, heads_tp)
+    v = _project(src, p.wv, heads_tp)
+    if cfg.qkv_bias:  # the biases laid out as their heads
+        bias = [pspec.layout(b, "tp" if heads_tp else None, None) for b in (p.bq, p.bk, p.bv)]
+        q, k, v = q + bias[0], k + bias[1], v + bias[2]
     if cfg.qk_norm:
         q = rms_norm(q, p.q_norm, cfg.norm_eps)
         k = rms_norm(k, p.k_norm, cfg.norm_eps)
@@ -187,21 +221,23 @@ def attention(
         q = apply_rope(q, positions, cfg.rope_theta, cfg.mrope_sections)
         k = apply_rope(k, positions, cfg.rope_theta, cfg.mrope_sections)
 
-    wo = p.wo.reshape(H * hd, -1)
+    wo = pspec.layout(p.wo.reshape(H * hd, -1), "tp" if heads_tp else None, None)
     if cache is not None:
         # Write this call's K/V at `pos`, in place.
         pos, end = cache.pos, cache.pos + S
         if end > cache.k.shape[1]:
             raise ValueError(f"the cache holds {cache.k.shape[1]} keys; this call writes "
                              f"keys {pos}..{end - 1}")
-        cache.k[:, pos:end] = k.to(cache.k.dtype)
-        cache.v[:, pos:end] = v.to(cache.v.dtype)
+        _write_cache(cache.k, k, pos, end)
+        _write_cache(cache.v, v, pos, end)
         cache.pos = end
         if S == 1:
             start = max(0, end - window) if window is not None else 0
             out = _one_query(cfg, q[:, 0], cache.k, cache.v, start, end)
             return out.reshape(B, 1, H * hd) @ wo, cache
         k, v = cache.k[:, :end], cache.v[:, :end]
+        hd_spec = ("dp", "sp", "tp" if heads_tp else None, None)
+        k, v = pspec.constrain(k, *hd_spec), pspec.constrain(v, *hd_spec)
         mask = _attn_mask(S, end, causal=True, window=window, offset=pos, device=x.device)
     elif kv_x is not None and S == 1:  # decode-time cross-attention: keys [0, Se)
         out = _one_query(cfg, q[:, 0], k, v, 0, k.shape[1])
@@ -210,16 +246,40 @@ def attention(
         mask = _attn_mask(S, k.shape[1], causal=causal and kv_x is None, window=window,
                           device=x.device)
 
-    G = H // Hkv
-    qf = q.float().reshape(B, S, Hkv, G, hd)
+    out = _attend(cfg, q, k, v, mask, heads_tp).to(x.dtype)
+    out = pspec.constrain(out, "dp", "sp", "tp" if heads_tp else None)
+    return out @ wo, cache
+
+
+def _attend(cfg: ModelConfig, q, k, v, mask, heads_tp: bool) -> torch.Tensor:
+    """The masked einsum attention of q [B, S, H, hd] over k, v [B, T, Hkv,
+    hd]: [B, S, H·hd] in f32. Sharded (DTensors), q, k and v are laid out
+    with the batch over the DP axes, the heads over `tp` when `heads_tp`
+    and the sequences whole, and each rank attends its own (batch, heads)
+    block on its local tensors: the block is independent of every other."""
+    if not pspec.is_dtensor(q):
+        return _attend_local(cfg, q, k, v, mask)
+    from torch.distributed.tensor import DTensor
+
+    spec = ("dp", None, "tp" if heads_tp else None, None)
+    q, k, v = (pspec.layout(t, *spec) for t in (q, k, v))
+    out = _attend_local(cfg, *(pspec.local(t) for t in (q, k, v)), mask).contiguous()
+    B, S, H, hd = q.shape
+    return DTensor.from_local(out, q.device_mesh, q.placements, run_check=False,
+                              shape=(B, S, H * hd), stride=(S * H * hd, H * hd, 1))
+
+
+def _attend_local(cfg: ModelConfig, q, k, v, mask) -> torch.Tensor:
+    B, S, H, hd = q.shape
+    Hkv = k.shape[2]
+    qf = q.float().reshape(B, S, Hkv, H // Hkv, hd)
     scores = torch.einsum("bshgk,bthk->bhgst", qf, k.float()) / math.sqrt(hd)
     if cfg.attn_softcap:
         scores = cfg.attn_softcap * torch.tanh(scores / cfg.attn_softcap)
     scores = scores + mask
     w = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhgst,bthk->bshgk", w, v.float())
-    out = out.reshape(B, S, H * hd).to(x.dtype)
-    return out @ wo, cache
+    return out.reshape(B, S, H * hd)
 
 
 def _one_query(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -10,7 +10,10 @@ batched products (`torch.bmm`: the reference computes them outside any
 Pallas kernel, as `jnp.einsum`), and combined back with the router's
 gates. Dropped rows add zeros at rank 0 (`index_put_(accumulate=True)`);
 the combine is `index_add_`, so with top_k > 2 the order of a token's
-contributions, and on the card their bf16 rounding, is not fixed.
+contributions, and on the card their bf16 rounding, is not fixed. On
+DTensors (a sharded run, `pspec.activation_axes`) both run out of place
+on buffers made replicated on the mesh (`_zeros`), and the expert buffer
+and the output take the reference's constraints.
 
 The capacity depends on the token count T: cap = max(8, ⌈T·k/E·cf⌉₈). A
 prefill or a full forward at capacity_factor 1.25 may drop assignments
@@ -23,11 +26,12 @@ weights then sit at slot perm[e].
 
 `moe_ffn_ep` is the expert-parallel dispatch over a `torch.distributed`
 process group of w ranks (the reference's shard_map over the mesh's model
-axis): tokens are replicated, each rank holds E/w experts
-(`shard_experts`), sends every other rank's assignments to a dump bucket,
-and the partial outputs [T, d] are added by one `all_reduce` (the
-reference's `psum`). With no group it is `moe_ffn`, as the reference falls
-back off-mesh.
+axis; on DTensors under `pspec.ep_shard_map()`, the plan `ep`,
+`_moe_ffn_ep_dtensor` hands it the local shards): tokens are replicated,
+each rank holds E/w experts (`shard_experts`), sends every other rank's
+assignments to a dump bucket, and the partial outputs [T, d] are added by
+one `all_reduce` (the reference's `psum`). With no group it is `moe_ffn`,
+as the reference falls back off-mesh.
 
 Under autograd `moe_ffn_ep` differentiates as the reference's shard_map
 does: the tokens and the router are replicated, so each rank's gradient
@@ -42,6 +46,7 @@ partial.)
 """
 from __future__ import annotations
 
+import types
 from typing import Optional
 
 import torch
@@ -49,7 +54,9 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.models import pspec
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.pspec import constrain
 
 
 class MoE(nn.Module):
@@ -95,6 +102,18 @@ def _experts(buf, w_gate, w_in, w_out):
     return torch.bmm(h, w_out)
 
 
+def _zeros(like: torch.Tensor, shape: tuple) -> torch.Tensor:
+    """Zeros of `shape` in like's dtype, on its device, or, for a DTensor,
+    a replicated DTensor on its mesh (the buffers the dispatch scatters
+    into and the combine adds into)."""
+    if not pspec.is_dtensor(like):
+        return torch.zeros(shape, dtype=like.dtype, device=like.device)
+    from torch.distributed.tensor import Replicate, zeros
+
+    mesh = like.device_mesh
+    return zeros(shape, dtype=like.dtype, device_mesh=mesh, placements=[Replicate()] * mesh.ndim)
+
+
 def _dispatch_combine(xf, gates, sorted_e, order, keep, rank, k, cap, w_gate, w_in, w_out):
     """Scatter the kept assignments (in `order`, expert `sorted_e`, row
     `rank`) into the experts' buffers, run them, and add each back into its
@@ -103,15 +122,23 @@ def _dispatch_combine(xf, gates, sorted_e, order, keep, rank, k, cap, w_gate, w_
     E = w_gate.shape[0]
     token_of = order // k
     safe_rank = torch.where(keep, rank, 0)
-    buf = torch.zeros((E, cap, d), dtype=xf.dtype, device=xf.device)
+    sharded = pspec.is_dtensor(xf)
+    buf = _zeros(xf, (E, cap, d))
     rows = torch.where(keep[:, None], xf[token_of], 0).to(xf.dtype)
-    buf.index_put_((sorted_e, safe_rank), rows, accumulate=True)
+    # On DTensors out of place: their in-place index ops can change a
+    # tensor's layout.
+    if sharded:
+        buf = buf.index_put((sorted_e, safe_rank), rows, accumulate=True)
+        buf = constrain(buf, "tp", None, None)  # EP: experts over the model axis
+    else:
+        buf.index_put_((sorted_e, safe_rank), rows, accumulate=True)
     out = _experts(buf, w_gate, w_in, w_out)
     contrib = out[sorted_e, safe_rank]  # [T·k, d]
     gate_sorted = gates.reshape(-1)[order]
     contrib = torch.where(keep[:, None], contrib * gate_sorted[:, None].to(xf.dtype), 0)
-    return torch.zeros((T, d), dtype=xf.dtype, device=xf.device).index_add_(0, token_of,
-                                                                            contrib)
+    if sharded:
+        return constrain(_zeros(xf, (T, d)).index_add(0, token_of, contrib), "dp", None)
+    return _zeros(xf, (T, d)).index_add_(0, token_of, contrib)
 
 
 def moe_ffn(cfg: ModelConfig, p: MoE, x: torch.Tensor, *,
@@ -192,11 +219,15 @@ class _SumOutputs(torch.autograd.Function):
 
 def moe_ffn_ep(cfg: ModelConfig, p: MoE, x: torch.Tensor, *, group=None) -> torch.Tensor:
     """Expert-parallel `moe_ffn` over the ranks of `group` (a
-    `torch.distributed` process group; None: `moe_ffn` on this process).
+    `torch.distributed` process group; None: `moe_ffn` on this process,
+    or, on DTensors under `pspec.ep_shard_map()`, `_moe_ffn_ep_dtensor`).
     x [B, S, d] holds every token on every rank; p holds this rank's E/w
     experts and the whole router (`shard_experts`). One `all_reduce` of
     the partial [B·S, d] outputs; every rank returns the sum."""
     if group is None:
+        ctx = pspec.ep_shard_map()
+        if ctx is not None and pspec.is_dtensor(x):
+            return _moe_ffn_ep_dtensor(cfg, p, x, *ctx)
         return moe_ffn(cfg, p, x)
     w, r = dist.get_world_size(group), dist.get_rank(group)
     E = cfg.moe.num_experts
@@ -207,6 +238,36 @@ def moe_ffn_ep(cfg: ModelConfig, p: MoE, x: torch.Tensor, *, group=None) -> torc
     xb = _SumGrads.apply(x.reshape(B * S, d), group)
     y = _moe_body(cfg, xb, _SumGrads.apply(p.router, group), p.w_gate, p.w_in, p.w_out, rank=r)
     return _SumOutputs.apply(y, group).reshape(B, S, d)
+
+
+def _moe_ffn_ep_dtensor(cfg: ModelConfig, p: MoE, x, mesh, dp, tp):
+    """The plan `ep` on DTensors (the reference's shard_map specs): the
+    tokens laid out over `dp` and whole over `tp`, the router whole, the
+    experts over `tp`; `moe_ffn_ep` runs on the local tensors over the
+    `tp` axis's process group, and its output is wrapped back laid out
+    over `dp`. The local router's and experts' gradients are partial sums
+    over the DP axes (each DP rank saw its own tokens; `moe_ffn_ep` has
+    summed them over `tp`), which DTensor reduces back onto their layout."""
+    from torch.distributed.tensor import DTensor, Partial
+
+    dims = tuple(mesh.mesh_dim_names)
+    dp_names = (dp,) if isinstance(dp, str) else tuple(dp)
+
+    def local(t, spec, partial_over_dp):
+        pl = pspec.placements(spec, mesh)
+        grad = tuple(Partial() if partial_over_dp and dims[i] in dp_names else pl[i]
+                     for i in range(len(dims)))
+        return t.redistribute(mesh, pl).to_local(grad_placements=grad)
+
+    P = pspec.P
+    expert = P(tp, None, None)
+    shard = types.SimpleNamespace(router=local(p.router, P(None, None), True),
+                                  **{n: local(getattr(p, n), expert, True)
+                                     for n in ("w_gate", "w_in", "w_out")})
+    out_pl = pspec.placements(P(dp, None, None), mesh)
+    y = moe_ffn_ep(cfg, shard, local(x, P(dp, None, None), False), group=mesh.get_group(tp))
+    return DTensor.from_local(y, mesh, out_pl, run_check=False, shape=x.shape,
+                              stride=x.stride())
 
 
 def shard_experts(cfg: ModelConfig, p: MoE, rank: int, world: int) -> MoE:

@@ -35,6 +35,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.models import pspec
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import _normal, _param, rms_norm
 
@@ -162,6 +163,43 @@ def _recurrence(state, xh, dt, A, Bm, Cm):
     return torch.stack(ys, dim=1), state
 
 
+def _scan(xh, dt, A, Bm, Cm, chunk: int, state=None):
+    """(y [B, S, nh, P], the final state [B, nh, P, N]): the decode
+    recurrence from `state`, or the chunked SSD from a zero state (a
+    prefill with a cache starts there too: the module docstring). Sharded
+    (DTensors), xh, dt and A are laid out with the batch over the DP axes
+    and the heads over `tp` where they divide, Bm and Cm (one group, shared
+    by every head) with the batch alone, and each rank scans its own
+    (batch, heads) block on its local tensors."""
+    def run(xh, dt, A, Bm, Cm, state):
+        if state is not None:
+            return _recurrence(state, xh, dt, A, Bm, Cm)
+        return ssd_chunked(xh, dt, A, Bm, Cm, chunk)
+
+    if not pspec.is_dtensor(xh):
+        return run(xh, dt, A, Bm, Cm, state)
+    from torch.distributed.tensor import DTensor, Shard
+
+    tp = "tp" if pspec.fits(xh.shape[2], "tp") else None
+    xh, dt = pspec.layout(xh, "dp", None, tp, None), pspec.layout(dt, "dp", None, tp)
+    A = pspec.layout(A, tp)
+    Bm, Cm = (pspec.layout(t, "dp", None, None) for t in (Bm, Cm))
+    args = [pspec.local(xh), pspec.local(dt), pspec.local(A, ("dp",)),
+            *(pspec.local(t, ("tp",) if tp else ()) for t in (Bm, Cm)),
+            None if state is None else pspec.local(pspec.layout(state, "dp", tp, None, None))]
+    y, final = run(*args)
+    mesh = xh.device_mesh
+    B, S, nh, P = xh.shape
+    N = Bm.shape[-1]
+    # The state's batch and heads (dims 0, 1) laid out as xh's (dims 0, 2).
+    st_pl = tuple(Shard({0: 0, 2: 1}[p.dim]) if isinstance(p, Shard) else p
+                  for p in xh.placements)
+    return (DTensor.from_local(y.contiguous(), mesh, xh.placements, run_check=False,
+                               shape=xh.shape, stride=(S * nh * P, nh * P, P, 1)),
+            DTensor.from_local(final.contiguous(), mesh, st_pl, run_check=False,
+                               shape=(B, nh, P, N), stride=(nh * P * N, P * N, N, 1)))
+
+
 def ssm_block(cfg: ModelConfig, p: SSM, x: torch.Tensor, *, cache: SSMCache | None = None):
     """The full mamba2 mixer. x: [B, S, d] → ([B, S, d], cache written in
     place, or None)."""
@@ -171,7 +209,10 @@ def ssm_block(cfg: ModelConfig, p: SSM, x: torch.Tensor, *, cache: SSMCache | No
     nh = d_in // s.head_dim
     n = s.d_state
 
-    zxbcdt = x @ p.in_proj
+    # Sharded, the projection is laid out whole before it is split (a split
+    # of its tp-sharded columns would leave each piece, and its gradient, in
+    # a layout the next products cannot take).
+    zxbcdt = pspec.constrain(x @ p.in_proj, "dp", "sp", None)
     z, xs, Bm, Cm, dt = torch.split(zxbcdt, [d_in, d_in, n, n, nh], dim=-1)
     conv_in = torch.cat([xs, Bm, Cm], dim=-1)  # [B, S, c]; c = d_in + 2n
 
@@ -191,11 +232,8 @@ def ssm_block(cfg: ModelConfig, p: SSM, x: torch.Tensor, *, cache: SSMCache | No
     A = -torch.exp(p.A_log.float())  # [nh]
     xh = xs.float().reshape(B_, S, nh, s.head_dim)
 
-    if cache is not None and S == 1:
-        y, state = _recurrence(cache.state, xh, dt, A, Bm.float(), Cm.float())
-    else:
-        # A prefill with a cache starts from a zero state (module docstring).
-        y, state = ssd_chunked(xh, dt, A, Bm.float(), Cm.float(), pick_chunk(S, s.chunk))
+    y, state = _scan(xh, dt, A, Bm.float(), Cm.float(), pick_chunk(S, s.chunk),
+                     cache.state if cache is not None and S == 1 else None)
     if cache is not None:
         cache.state.copy_(state)
         if cache.conv.dtype == new_conv_state.dtype:

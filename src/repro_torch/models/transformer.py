@@ -7,8 +7,10 @@ layer l taking the spec `cfg.group[l % len(cfg.group)]` (gemma2's
 local/global alternation, jamba's period-8 block of one attention and
 seven SSM mixers with a MoE MLP every other layer).
 `interop.lm_params_from_numpy` unstacks the reference's parameters into
-that order. The reference's sharding constraints (`pspec.constrain`) have
-no counterpart here.
+that order. The sharding constraints (`pspec.constrain`) sit where the
+reference's do: after the embedding, at each group boundary (each run of
+`len(cfg.group)` layers), on the logits. They act on DTensors inside
+`pspec.activation_axes` only; on plain tensors they return their input.
 
 A layer (`Layer`) is a pre-norm mixer (`attn` or `ssm`), then for an
 encoder-decoder's decoder a cross-attention (`cross_norm`, `cross`), then
@@ -44,8 +46,10 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
+from repro_torch.models import pspec
 from repro_torch.models import ssm as SSM
 from repro_torch.models.config import LayerSpec, ModelConfig
+from repro_torch.models.pspec import constrain
 
 ENC_SPEC = LayerSpec(kind="attn", mlp="dense")  # an encoder layer
 
@@ -132,21 +136,27 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, dtype=torch.bfloat
 
 def _apply_layer(cfg, spec: LayerSpec, p: Layer, x, positions, *, causal, enc_out=None,
                  cache=None):
+    # Sharded, each branch's output is laid out as the residual before the
+    # add (a partial sum over `tp` reduced), so that the residual stream
+    # keeps the layout of the group boundary.
+    def branch(h):
+        return constrain(h, "dp", "sp", None)
+
     h = L.rms_norm(x, p.pre_norm, cfg.norm_eps)
     if spec.kind == "attn":
         h, _ = L.attention(cfg, p.attn, h, positions, causal=causal,
                            window=spec.sliding_window, cache=cache)
     else:
         h, _ = SSM.ssm_block(cfg, p.ssm, h, cache=cache)
-    x = x + h
+    x = x + branch(h)
     if spec.cross_attn:
         h = L.rms_norm(x, p.cross_norm, cfg.norm_eps)
         h, _ = L.attention(cfg, p.cross, h, positions, causal=False, kv_x=enc_out)
-        x = x + h
+        x = x + branch(h)
     if spec.mlp != "none":
         h = L.rms_norm(x, p.mlp_norm, cfg.norm_eps)
         h = L.mlp(cfg, p.mlp, h) if spec.mlp == "dense" else MOE.moe_ffn_ep(cfg, p.moe, h)
-        x = x + h
+        x = x + branch(h)
     return x
 
 
@@ -157,19 +167,43 @@ def _run_stack(cfg, layers, specs, x, positions, *, causal, enc_out=None, caches
     len(specs) layers, one of the reference's scanned groups, is a
     checkpoint segment."""
     n = len(specs)
+    axes = pspec.axes()
 
     def group(g, xg):
-        for layer in range(g * n, min((g + 1) * n, len(layers))):
-            xg = _apply_layer(cfg, specs[layer % n], layers[layer], xg, positions,
-                              causal=causal, enc_out=enc_out,
-                              cache=None if caches is None else caches[layer])
-        return xg
+        with pspec.restored(axes):
+            xg = constrain(xg, "dp", "sp", None)
+            for layer in range(g * n, min((g + 1) * n, len(layers))):
+                xg = _apply_layer(cfg, specs[layer % n], layers[layer], xg, positions,
+                                  causal=causal, enc_out=enc_out,
+                                  cache=None if caches is None else caches[layer])
+            return xg
 
     segments = (remat and caches is None and torch.is_grad_enabled() and
                 (x.requires_grad or any(t.requires_grad for t in layers.parameters())))
     for g in range(-(-len(layers) // n)):
         x = checkpoint(group, g, x, use_reentrant=False) if segments else group(g, x)
     return x
+
+
+def _embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """table[tokens]. Sharded (DTensors), the table is gathered over the DP
+    axes first (the FSDP all-gather; its d_model dim stays over `tp`) and
+    each rank looks its own tokens up in its local piece; the table's
+    gradient is a partial sum over the DP axes, which DTensor reduces back
+    onto its layout."""
+    if not pspec.axes() or not hasattr(tokens, "placements"):
+        return table[tokens]
+    from torch.distributed.tensor import DTensor, Partial, Shard
+
+    table = pspec.layout(table, None, "tp")
+    mesh = table.device_mesh
+    grad = tuple(p if isinstance(p, Shard) else Partial() for p in table.placements)
+    local = table.to_local(grad_placements=grad)[tokens.to_local()]
+    out = tuple(Shard(2) if isinstance(p, Shard) else q
+                for p, q in zip(table.placements, tokens.placements))
+    shape = (*tokens.shape, table.shape[1])
+    return DTensor.from_local(local, mesh, out, run_check=False, shape=shape,
+                              stride=(shape[1] * shape[2], shape[2], 1))
 
 
 def encode(cfg: ModelConfig, params: LM, *, enc_tokens: Optional[torch.Tensor] = None,
@@ -204,7 +238,8 @@ def forward(
     remat: bool = True,
 ):
     """Returns (logits [B, S, vocab], caches)."""
-    x = params.embed[tokens] if embeds is None else embeds
+    x = _embed(params.embed, tokens) if embeds is None else embeds
+    x = constrain(x, "dp", "sp", None)
     B, S = x.shape[:2]
     if positions is None:
         base = torch.arange(S, device=x.device)[None, :] + (0 if cache_pos is None
@@ -218,7 +253,9 @@ def forward(
                    caches=caches, remat=remat)
     x = L.rms_norm(x, params.final_norm, cfg.norm_eps)
     unembed = params.embed.T if cfg.tie_embeddings else params.unembed
-    logits = x @ unembed
+    x = constrain(x, "dp", "sp", None)
+    logits = x @ pspec.layout(unembed, None, "tp")  # vocab-parallel: vocab over tp
+    logits = constrain(logits, "dp", "sp", "tp")
     if cfg.logit_softcap:
         logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
     return logits, caches

@@ -45,7 +45,8 @@ def init_opt_state(params, cfg: AdamWConfig) -> dict:
     """Zero `mu` and `nu` in `state_dtype`, one a parameter, and `step` 0."""
     named = list(params.named_parameters())
     dev = named[0][1].device
-    zeros = {n: torch.zeros(p.shape, dtype=cfg.state_dtype, device=dev) for n, p in named}
+    # zeros_like: a sharded (DTensor) parameter's states take its layout.
+    zeros = {n: torch.zeros_like(p, dtype=cfg.state_dtype) for n, p in named}
     return dict(mu=zeros, nu={n: torch.zeros_like(z) for n, z in zeros.items()},
                 step=torch.zeros((), dtype=torch.int32, device=dev))
 

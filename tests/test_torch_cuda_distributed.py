@@ -58,7 +58,7 @@ def test_stepper_on_nccl_matches_fused(nccl_mesh, card_pipe, prog):
                                           num_vertices=V)
     init = eng.get_program(prog).init(sub, num_vertices=V, source=source)
     dispatch.reset_launches()
-    val, msgs, steps, ms, its = runner(arrays, init)
+    val, msgs, steps, ms, its = runner.gather(runner(arrays, init))  # world 1: rows = all
     kernel = "bsp_superstep.sum" if prog == "pr" else "bsp_superstep.min"
     assert dispatch.LAUNCHES[kernel] == steps
     assert torch.equal(val, want.cpu())

@@ -110,7 +110,9 @@ for case, (prog, kw) in job["cases"].items():
     init = eng.get_program(prog).init(sub, num_vertices=job["V"], source=job["source"])
     runner = eng.make_distributed_stepper(mesh, "workers", prog, statics,
                                           num_vertices=job["V"], **kw)
-    val, msgs, steps, ms, its = runner(arrays, init)
+    r = runner.rows  # this rank's rows in, the whole set gathered out
+    val, msgs, steps, ms, its = runner.gather(runner({k: a[r] for k, a in arrays.items()},
+                                                     init[r]))
     out.update({f"step_{case}_val": val.numpy(), f"step_{case}_msgs": msgs.numpy(),
                 f"step_{case}_steps": np.int64(steps), f"step_{case}_ms": ms.numpy(),
                 f"step_{case}_its": its.numpy()})
@@ -304,12 +306,13 @@ def test_stepper_world1_matches_reference_stepper(world1, small_powerlaw, prog):
 
 def test_stepper_counts_host_syncs(world1, carried4, small_powerlaw):
     """"dist" counts a superstep a dispatch, and a host sync a superstep
-    whose flag can stop the run, plus one at the end."""
+    whose flag can stop the run, plus one for the 2^24 guard's bound
+    (int32 programs) and one for the id flag at the end."""
     d0, h0 = eng.DISPATCH_COUNTS["dist"], eng.HOST_SYNCS["dist"]
     out = _run_stepper(world1, carried4[True], small_powerlaw, *CASES["cc"])
     steps = out[2]
     assert eng.DISPATCH_COUNTS["dist"] - d0 == steps
-    assert eng.HOST_SYNCS["dist"] - h0 == steps + 1
+    assert eng.HOST_SYNCS["dist"] - h0 == steps + 2
     h0 = eng.HOST_SYNCS["dist"]
     out = _run_stepper(world1, carried4[False], small_powerlaw, *CASES["pr"])
     assert out[2] == 20 and eng.HOST_SYNCS["dist"] - h0 == 1  # tol 0: no flag to read
@@ -328,7 +331,8 @@ def test_stepper_crash_hook(world1, small_powerlaw):
 
 def test_stepper_rejects_huge_vertex_ids_before_any_collective(world1, carried4, monkeypatch):
     """Flat ids >= 2^24 raise the named ValueError before any remap or
-    collective (the collectives are made to fail here)."""
+    collective but the guard's own all_reduce of the world's bound (every
+    other collective is made to fail here)."""
     _, sub = carried4[True]
     big = dataclasses.replace(sub, gid=torch.where(sub.vmask, sub.gid + (1 << 24), sub.gid),
                               addressing="flat")
@@ -339,10 +343,20 @@ def test_stepper_rejects_huge_vertex_ids_before_any_collective(world1, carried4,
     def no_collective(*a, **k):
         raise AssertionError("a collective ran before the guard")
 
-    for name in ("all_to_all_single", "all_reduce", "all_gather"):
+    real_all_reduce, guards = eng.dist.all_reduce, []
+
+    def guard_only(t, *a, **k):
+        if guards:
+            no_collective()
+        guards.append(t.dtype)
+        return real_all_reduce(t, *a, **k)
+
+    for name in ("all_to_all_single", "all_gather"):
         monkeypatch.setattr(eng.dist, name, no_collective)
+    monkeypatch.setattr(eng.dist, "all_reduce", guard_only)
     with pytest.raises(ValueError, match="vertex ids"):
         runner(arrays, eng.init_cc(big))
+    assert guards == [torch.int64]
 
 
 @pytest.mark.parametrize("prog", ["cc", "pr"])

@@ -240,7 +240,7 @@ def test_fake_world_exchange_is_the_send_buffer():
 @pytest.mark.parametrize("p", (256, 512))
 def test_plan_at_friendster_size(p):
     """The Friendster spec's byte counts, reckoned from shapes alone."""
-    plan = plan_bsp(gd.friendster_spec(p), eng.get_program("cc"), p, num_supersteps=4)
+    plan = plan_bsp(gd.friendster_spec(p), eng.get_program("cc"), p)
     a = plan.arrays
     edges = sum(a[k] for k in ("lsrc", "ldst", "weight", "edge_mask", "lsrc_s", "ldst_s",
                                "weight_s", "edge_mask_s"))
@@ -263,9 +263,14 @@ def test_plan_at_friendster_size(p):
     assert plan.stream_edges == 16_777_216
     assert plan.pass_bytes == 16_777_216 * 12 + 8 * 1_048_577 + 4
     assert plan.pass_flops == 2 * 16_777_216
-    assert plan.final == (("all-gather", 4 * p * (1_048_577 + 2 * 4 + 1), p),)
-    pr = plan_bsp(gd.friendster_spec(p), eng.get_program("pr"), p, num_supersteps=4)
+    # The 2^24 guard's bound ahead of the loop (the largest value, and a
+    # covered count a rank), the kernels' id flag after it: the runner
+    # returns its rank's rows, with no gather of the whole set.
+    assert plan.setup == (("all-reduce", 8 * (p + 1), p),)
+    assert plan.final == (("all-reduce", 4, p),)
+    pr = plan_bsp(gd.friendster_spec(p), eng.get_program("pr"), p)
     assert pr.superstep[2] == ("all-gather", 4 * p, p)
+    assert pr.setup == () and pr.final == (("all-reduce", 4, p),)
     assert pr.stream_edges == 8_388_608
     with pt_mesh.fake_world(p):
         mesh = pt_mesh.make_production_mesh(multi_pod=p == 512, device_type="cpu")
@@ -335,10 +340,10 @@ def test_graph_dryrun_small_matches_plan(prog):
     rank's argument bytes against the plan's; two runs equal."""
     rec = gd.run_graph_dryrun(device="cpu", spec=SMALL, program=prog)
     again = gd.run_graph_dryrun(device="cpu", spec=SMALL, program=prog)
-    plan = plan_bsp(SMALL, eng.get_program(prog), 256, num_supersteps=4)
+    plan = plan_bsp(SMALL, eng.get_program(prog), 256)
     assert rec["collectives"] == plan.collectives(rec["supersteps"], final=True).per_op
     assert rec["collectives"] == rec["plan_collectives"]
-    assert rec["collectives_count"] == 3 * rec["supersteps"] + 1
+    assert rec["collectives_count"] == 3 * rec["supersteps"] + (2 if prog == "cc" else 1)
     assert rec["link_bytes_per_device"] == plan.link_bytes_per_superstep
     assert rec["device_arg_bytes"] == rec["arg_bytes"] == plan.arg_bytes
     assert rec["world"] == "fake" and rec["device"] == "cpu" and rec["temp_bytes"] is None
@@ -448,7 +453,7 @@ def test_plan_against_reference_lowering():
     spec = SubgraphSpec(256, 64, 256, 16)
     for prog in ("cc", "pr"):
         P = eng.get_program(prog)
-        plan = plan_bsp(spec, P, 256, num_supersteps=2)
+        plan = plan_bsp(spec, P, 256)
         got = res[prog]
         assert "all-to-all" not in got["per_op"]  # (1)
         xla_a2a = roof.summarize_collectives([("all-to-all", b, g) for b, g in got["a2a"]])

@@ -20,8 +20,8 @@ Phases; a failed check raises and the script exits non-zero:
   2. kernels  hold each kernel against its plain PyTorch version on the card,
               on the smoke graph's real state: ebg_commit over a range of
               blocks for ebv (frozen and window), hdrf and greedy, block by
-              block and as one stream launch, and at p=64 (the block-wide
-              kernel) — bitwise; its two bitset transposes (bitwise);
+              block and as one stream launch, and at p=64 (two chain
+              warps) — bitwise; its two bitset transposes (bitwise);
               bsp_superstep on the CC, REACH (two-level and flat addressing,
               the latter with negative values), SSSP and BFS streams (min,
               bitwise), the PageRank stream and a hub-heavy [p, E] stream
@@ -58,6 +58,22 @@ Phases; a failed check raises and the script exits non-zero:
               (6 decimals), CC's supersteps and messages equal the JAX
               reference's; the labels equal label propagation. One line a
               partitioner on stdout: the port's Table III/IV row.
+  4b. commit_tiled
+              ebg_commit past one patched tile and past one chain warp, on
+              twitter_like (p=32 unless named; launch counts zeroed just
+              before each timed stream and read just after: one launch a
+              stream): window mode at blocks 48, 256 and 4,096 over the
+              whole stream (patched tiles of 48 edges, and of 64 that cut
+              the blocks), equal bitwise (parts, bitset, counters: any
+              window block is the scan); HDRF's stream at block 2,048 (weighted,
+              range: deferred tiles of 1,024); ebv at p = 64 and p = 256,
+              block 4,096 (2 and 8 chain warps, deferred tiles). Each of
+              the last three is held against the plain version on 2 blocks
+              from the middle of its stream (from the state the kernel
+              reaches there); each stream is timed whole (CUDA events)
+              beside its bytes bound, into ebg_commit's kernels entry
+              ("tiled"). It runs after the training phase, in the
+              full-width graph's generation wait.
   5. full     the full-width path: R-MAT with LiveJournal's scale and skew
               (2^22 vertices, 2^26 edges; generated on the host in a thread
               that main starts after phase 0, beside phases 1-4), p=32,
@@ -95,7 +111,7 @@ Phases; a failed check raises and the script exits non-zero:
               partition_metrics' edges per part, every vertex counter at
               least its |V_i|; edges/s and the counters' RF beside
               partition_metrics'. On twitter_like partition_store at its
-              default block (4,096, the block-wide commit kernel) against
+              default block (4,096: deferred tiles of 1,024) against
               the in-memory stream at that block (order, assignments,
               counters, bitwise; the commit stream timed), then the
               streamed build of edge_part_stream against build_subgraphs
@@ -319,7 +335,11 @@ ATTN_CASES = (  # (entry name, batch, softcap)
     ("decode_attention.B1", 1, 50.0), ("decode_attention.B1.softcap0", 1, 0.0),
 )
 MEMB_EDGES = 1 << 22  # the membership slice of the full-width stream
-WIDE_COMMIT = dict(parts=2048, block=8192)  # past the block-wide kernel's shared memory
+WIDE_COMMIT = dict(parts=2048, block=8192)  # past 1,024 parts: the WIDE kernel
+# ebg_commit past one patched tile and one chain warp, on twitter_like: window
+# blocks compared, HDRF's block, the parts and block of the multi-warp streams.
+TILED_COMMIT = dict(window_blocks=(48, 256, 4096), hdrf_block=2048, parts=(64, 256),
+                    parts_block=4096)
 
 # The JAX reference on the CPU (compute_backend="xla", all defaults,
 # p=32, ebg_chunked): (steps, messages) per program, CC with components.
@@ -362,8 +382,8 @@ BATCH_B = 8  # the batched superstep launch timed at full width (BFS)
 RESILIENCE = (("cc", 1, 2), ("sssp", 2, 2), ("pr", 5, 12))
 # The out-of-core pipeline: shards of 2^20 edges; at full width blocks of
 # 256 (the main path's ebg_chunked block, which it is held against), on
-# twitter_like blocks of 4,096 (partition_store's default, the block-wide
-# commit kernel), held against the in-memory stream at that block.
+# twitter_like blocks of 4,096 (partition_store's default: the commit
+# kernel's deferred tiles), held against the in-memory stream at that block.
 OUT_OF_CORE = dict(shard_edges=1 << 20, block=256, tw_block=4096)
 # The sharded out-of-core layout's block on twitter_like (one launch and
 # one all_gather a block).
@@ -944,7 +964,7 @@ def phase_kernels(dev):
         st, start = commit_blocks(g, scorer, window, dev, first=100, count=6)
         compare_commit_stream(start, st, 100, 8, window)
     commit_blocks(g, "ebv", False, dev, first=nblocks - 2, count=2)  # the padded tail block
-    for scorer, window in (("ebv", False), ("hdrf", True)):  # p > 32: the block-wide kernel
+    for scorer, window in (("ebv", False), ("hdrf", True)):  # p > 32: two chain warps
         st, start = commit_blocks(g, scorer, window, dev, first=50, count=2, parts=64)
         compare_commit_stream(start, st, 50, 4, window)
     compare_transposes(dev)
@@ -1249,6 +1269,69 @@ def timed(fn, *a, **kw):
     return out, time.perf_counter() - t
 
 
+def phase_commit_tiled(dev):
+    """ebg_commit past one patched tile and one chain warp on twitter_like
+    (see the module's phase 4b). Returns the record, with its kernels
+    entries."""
+    from repro_torch.core.streaming import prepare_stream
+    from repro_torch.graph.generate import make_graph
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels import ebg_commit as ebg
+
+    t0 = time.perf_counter()
+    tw = make_graph("twitter_like")
+    V, E = tw.num_vertices, tw.num_edges
+    entries = []
+
+    def timed_stream(st, parts, window, label):
+        """The whole stream in one launch from a fresh state, timed; its
+        (parts, keep_bits, e_count, v_count) and its entry."""
+        state = st.new_state(parts, V)
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        sync()
+        dispatch.reset_launches()
+        a.record()
+        got = ebg.ebg_commit_stream(*state, st.u, st.v, st.valid, st.coef, block=st.block,
+                                    balance=st.balance, window=window, wu=st.wu, wv=st.wv)
+        b.record()
+        b.synchronize()
+        launches = dispatch.LAUNCHES.get("ebg_commit", 0)
+        check(launches == 1, f"commit_tiled {label}: {launches} ebg_commit launches, not 1")
+        ms = a.elapsed_time(b)
+        nblocks = st.u.shape[0] // st.block
+        io = nbytes(st.u, st.v, st.valid, got, *state) + nbytes(*state)
+        if st.wu is not None:
+            io += nbytes(st.wu, st.wv)
+        entry = dict(shape=f"twitter_like {label}: p={parts}, block {st.block}, {nblocks} blocks",
+                     launches=launches, ms=ms, us_per_block=1e3 * ms / nblocks,
+                     bound_ms=1e3 * io / HBM_BYTES_PER_S, bound_by="bytes")
+        entries.append(entry)
+        log(f"commit_tiled: {entry['shape']}: {ms:.2f} ms, {entry['us_per_block']:.2f} µs a block")
+        return [got[:E], *state]
+
+    # Window mode: any block size is the scan.
+    runs = [timed_stream(prepare_stream(tw, PARTS, "ebv", block=b, device=dev), PARTS, True,
+                         "ebv window") for b in TILED_COMMIT["window_blocks"]]
+    for name, *xs in zip(("parts", "keep_bits", "e_count", "v_count"), *runs):
+        check(all(torch.equal(xs[0], x) for x in xs[1:]),
+              f"commit_tiled: window {name} differs between blocks {TILED_COMMIT['window_blocks']}")
+    del runs
+    # HDRF at block 2,048, and ebv at p = 64 and 256: 2 blocks from the middle
+    # of each stream against the plain version, then the whole stream timed.
+    checks = [("hdrf", PARTS, TILED_COMMIT["hdrf_block"])] + [
+        ("ebv", p, TILED_COMMIT["parts_block"]) for p in TILED_COMMIT["parts"]]
+    for scorer, parts, block in checks:
+        nblocks = -(-E // block)
+        st, _ = commit_blocks(tw, scorer, False, dev, first=nblocks // 2, count=2, block=block,
+                              parts=parts)
+        timed_stream(st, parts, False, f"{scorer} frozen")
+        del st
+    log("commit_tiled: window blocks "
+        f"{TILED_COMMIT['window_blocks']} equal (parts, bitset, counters); hdrf at block "
+        f"{TILED_COMMIT['hdrf_block']} and ebv at p={TILED_COMMIT['parts']} == plain on 2 blocks")
+    return dict(entries=entries, phase_s=time.perf_counter() - t0)
+
+
 def phase_full(dev, graph):
     """`graph`: the future of the full-width R-MAT graph and its wall (main
     starts it in a thread after the analysis phase)."""
@@ -1538,8 +1621,9 @@ def phase_outofcore(g, pipe, m, dev):
     in stream and input order, bitwise; the edge counters equal to
     partition_metrics' edges per part, bit for bit, and every vertex counter
     at least its |V_i|. Then, on twitter_like (the full-width build would
-    pass the time limit), partition_store at its default block (4,096, the
-    block-wide kernel) against the in-memory stream at that block, and the
+    pass the time limit), partition_store at its default block (4,096: the
+    commit kernel's deferred tiles) against the in-memory stream at that
+    block, and the
     streamed build from edge_part_stream against build_subgraphs on the
     same partition (every field), and CC on both. The store and the order's
     buckets go to a temporary directory, removed at the end."""
@@ -2301,9 +2385,9 @@ def measure_segment(prog, lsrc, ldst, w, val, n, launches):
 
 
 def measure_commit_wide(dev):
-    """ebg_commit past the block-wide kernel's shared memory: p=2048 parts
-    and blocks of 8192 edges of the smoke graph's ebv stream (the workspace
-    path). Two blocks through the stream entry, then one, frozen and then
+    """ebg_commit past 1,024 parts: p=2048 parts and blocks of 8192 edges of
+    the smoke graph's ebv stream (the WIDE kernel, its staging in the
+    workspace). Two blocks through the stream entry, then one, frozen and then
     window, bitwise against the plain version; the frozen block timed."""
     from repro_torch.graph.generate import rmat
     from repro_torch.kernels import ebg_commit as ebg
@@ -2321,6 +2405,9 @@ def measure_commit_wide(dev):
             sl = slice(2 * block, 3 * block)
             args = (*start, st.u[sl], st.v[sl], st.valid[sl], st.coef)
             out["wide_block_ms"] = cuda_ms(lambda: ebg.ebg_commit_block(*args), reps=3)
+            # bytes: the state read and written once, the block's edges, its parts
+            io = 2 * nbytes(*start) + nbytes(*args[3:6]) + 4 * block
+            out["wide_bound_ms"] = 1e3 * io / HBM_BYTES_PER_S
             out["wide_plain_ms"] = cuda_ms(lambda: ebg.ebg_commit_block_plain(*args), reps=1,
                                            warmup=0)
         out[f"wide_check_s_{'window' if window else 'frozen'}"] = compare_s
@@ -3719,7 +3806,10 @@ def main(argv=None) -> int:
             # thread ends (its figures are the card's: CUDA events a step).
             lm_train = phase_lm_train(dev)
             torch.cuda.empty_cache()
+            record["commit_tiled"] = phase_commit_tiled(dev)
             record["full"], kernels = phase_full(dev, graph)
+            next(e for e in kernels if e["name"] == "ebg_commit")["tiled"] = (
+                record["commit_tiled"]["entries"])
     finally:
         if pool is not None:  # a failed phase leaves the generation to end on its own
             pool.shutdown(wait=False)

@@ -20,7 +20,10 @@ operation rounded on its own (the kernel writes the FMAs out and builds
 with -fmad=false; the plain version emulates them exactly in float64).
 
 Dispatch: a CPU tensor runs the plain version; a CUDA tensor launches the
-kernel, and anything else raises. On the card a launch works on the
+kernel, and anything else raises. The kernel walks the stream in tiles of
+its own (see csrc/ebg_commit.cu), which changes no result: frozen blocks
+keep their block-start masks, and window mode is the scan at any block
+size. On the card a launch works on the
 bitset's vertex-major transpose `memb` [32·⌈V/32⌉, ⌈p/32⌉] (bit i of word
 w: part 32w+i holds the vertex), made by `keep_bits_to_memb` before it and
 turned back by `memb_to_keep_bits` after it — two small kernels, counted
@@ -230,8 +233,8 @@ def _launch_cuda(keep_bits, e_count, v_count, u, v, valid, coef, wu, wv, parts, 
     check_ids(("u", u, 32 * vw), ("v", v, 32 * vw))
     memb = keep_bits_to_memb(keep_bits)
     weighted = wu is not None
-    # Shapes whose per-edge staging does not fit in shared memory stage it
-    # in a global workspace (the kernel says how much it needs).
+    # More than 1,024 parts (the WIDE kernel) stage each block in a global
+    # workspace (the kernel says how much it needs).
     ws_bytes = c_function("ebg_commit", "ebg_commit_workspace_bytes", [ctypes.c_int] * 3,
                           ctypes.c_longlong)(p, block, int(weighted))
     ws = (torch.empty(((ws_bytes + 15) // 16, 4), dtype=torch.int32, device=memb.device)

@@ -1,7 +1,8 @@
 """The port's kernels on the card: `bsp_superstep`'s min and sum,
 `segment_reduce`, `ebg_membership`, `decode_attention` (every head_dim to
-256), `ebg_commit` (also at shapes past the block-wide kernel's shared
-memory) and its two layout transposes against their plain PyTorch versions,
+256), `ebg_commit` (blocks of one tile and of several, 1 to 2,048 parts:
+one chain warp, several, and the WIDE kernel past 1,024; window mode at any
+block size) and its two layout transposes against their plain PyTorch versions,
 the id guards of `segment_reduce`, `bsp_superstep` and `ebg_membership`, and
 the hash-family partitioners on the card against their CPU path (marked
 `cuda`; they skip without a card). This file imports neither
@@ -568,10 +569,11 @@ def test_cuda_bsp_superstep_rejects_out_of_range_ids(cuda_device, combine, name,
 @pytest.mark.parametrize("window", [False, True], ids=["frozen", "window"])
 @pytest.mark.parametrize("balance", ["static", "range"])
 def test_cuda_ebg_commit_large_shapes(cuda_device, p, block, window, balance):
-    """Shapes whose per-edge staging does not fit in shared memory (and
-    p > 1,024 parts) take the workspace path: bitwise against the plain
-    version, one block through `ebg_commit_block` and two through
-    `ebg_commit_stream`."""
+    """Large shapes, bitwise against the plain version, one block through
+    `ebg_commit_block` and two through `ebg_commit_stream`: (2,048, 8,192)
+    runs the WIDE kernel (p > 1,024: its staging in the global workspace);
+    (256, 4,096) and (33, 8,192) the tiled kernel on 8 and 2 chain warps:
+    frozen blocks in deferred tiles of 1,024 edges, window tiles of 64."""
     state, edges, coef, _, _ = _commit_stream_inputs(p + block, p, 20_011, 2 * block, False,
                                                      hub=True)
     kw = dict(balance=balance, window=window)
@@ -591,6 +593,70 @@ def test_cuda_ebg_commit_large_shapes(cuda_device, p, block, window, balance):
     assert torch.equal(got.cpu(), want)
     for g, w in zip(dev, want_state):
         assert torch.equal(g.cpu(), w)
+
+
+def _commit_card(cuda_device, state, edges, coef, wu, wv, block, **kw):
+    """`ebg_commit_stream` on the card from copies of `state`: [parts,
+    keep_bits, e_count, v_count] back on the CPU."""
+    dev = [t.to(cuda_device) for t in state]
+    got = pt_ebg.ebg_commit_stream(*dev, *(t.to(cuda_device) for t in edges),
+                                   coef.to(cuda_device), block=block,
+                                   wu=None if wu is None else wu.to(cuda_device),
+                                   wv=None if wv is None else wv.to(cuda_device), **kw)
+    torch.cuda.synchronize()
+    return [got.cpu(), *(t.cpu() for t in dev)]
+
+
+def _commit_plain(state, edges, coef, wu, wv, block, **kw):
+    """The same through the plain version on the CPU."""
+    want_state = [t.clone() for t in state]
+    want = pt_ebg.ebg_commit_stream(*want_state, *edges, coef, block=block, wu=wu, wv=wv, **kw)
+    return [want, *want_state]
+
+
+def _assert_commit_equal(got, want, what):
+    for name, g, w in zip(("parts", "keep_bits", "e_count", "v_count"), got, want):
+        assert torch.equal(g, w), f"{name} differs: {what}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", [32, 33, 64, 256, 1024])
+@pytest.mark.parametrize("block", [2048, 2049, 4096])
+@pytest.mark.parametrize("window", [False, True], ids=["frozen", "window"])
+@pytest.mark.parametrize("balance", ["static", "range"])
+@pytest.mark.parametrize("weighted", [False, True], ids=["unweighted", "weighted"])
+def test_cuda_ebg_commit_tiled_blocks(cuda_device, p, block, window, balance, weighted):
+    """Blocks longer than a patched tile (2,048 edges at p <= 32, fewer at
+    more parts or with weights): frozen blocks walked in deferred tiles
+    (the next block's first tile gathered after the block commits), window
+    tiles that cut the blocks, and 33-1,024 parts on several chain warps
+    (two parts a lane past 512). Two blocks through `ebg_commit_stream` on
+    a uniform and a hub-heavy stream, bitwise against the plain version:
+    parts, bitset and counters."""
+    kw = dict(balance=balance, window=window)
+    for hub in (False, True):
+        state, edges, coef, wu, wv = _commit_stream_inputs(p + block + hub, p, 5003, 2 * block,
+                                                           weighted, hub)
+        _assert_commit_equal(_commit_card(cuda_device, state, edges, coef, wu, wv, block, **kw),
+                             _commit_plain(state, edges, coef, wu, wv, block, **kw),
+                             f"hub={hub}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", [32, 256])
+@pytest.mark.parametrize("balance,weighted", [("static", False), ("range", True)])
+def test_cuda_ebg_commit_window_any_block(cuda_device, p, balance, weighted):
+    """Window mode makes any block size the per-edge scan: one hub-heavy
+    stream at window blocks 1, 32, 256 and 4,096 leaves the same parts,
+    bitset and counters on the card (tiles of 1 and 32 edges; tiles of 64,
+    the window tile, which cut the blocks of 256 and 4,096), and those of
+    the plain version at block 4,096."""
+    state, edges, coef, wu, wv = _commit_stream_inputs(p + 17, p, 3001, 8192, weighted, hub=True)
+    kw = dict(balance=balance, window=True)
+    want = _commit_plain(state, edges, coef, wu, wv, 4096, **kw)
+    for block in (1, 32, 256, 4096):
+        _assert_commit_equal(_commit_card(cuda_device, state, edges, coef, wu, wv, block, **kw),
+                             want, f"window block {block}")
 
 
 @pytest.mark.cuda

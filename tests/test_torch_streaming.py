@@ -1,8 +1,9 @@
 """Port parity, streaming partitioners: the `ebg_commit` kernel's plain
 version against the reference oracle (`repro.kernels.ref` through
 `ops.ebg_commit_block(impl="ref")`), and the partition assignments of
-ebv/hdrf/greedy at blocks 1, 64 and 256 (frozen and window commit) and of
-the `ebg` scan against the reference drivers and its numpy oracle.
+ebv/hdrf/greedy at blocks 1, 64 and 256 (frozen and window commit), at
+blocks 2,049 and 4,096 with 32, 33 and 256 parts, and of the `ebg` scan
+against the reference drivers and its numpy oracle.
 
 All exact: the port repeats the reference's f32 arithmetic as XLA runs it
 on the CPU — inv_e/inv_v computed in f32, and the score
@@ -187,6 +188,37 @@ def test_window_and_scan_match_reference_scan(graphs, scorer):
                                                            commit="window", device="cpu")
             np.testing.assert_array_equal(win.part.numpy(), oracle,
                                           err_msg=f"{scorer}/window/block={block}")
+
+
+@pytest.fixture(scope="module")
+def tile_graph():
+    """(reference graph, port graph): an R-MAT graph of 4,243 edges, past
+    one block of 4,096 and two of 2,049."""
+    from repro.graph.generate import rmat as ref_rmat
+
+    g = ref_rmat(1024, 4300, seed=5)
+    return g, _port(g)
+
+
+@pytest.mark.parametrize("commit", ["frozen", "window"])
+@pytest.mark.parametrize("scorer", SCORERS)
+@pytest.mark.parametrize("p", [32, 33, 256])
+def test_tiled_blocks_match_reference(tile_graph, p, scorer, commit):
+    """The shapes the card walks in tiles of its own (blocks of 2,049 and
+    4,096 edges: deferred frozen tiles, window tiles that cut the blocks)
+    and on several chain warps (33 and 256 parts): the port's plain path
+    against the reference's blocked driver (frozen) and its scan
+    (window: any block size is the scan)."""
+    ref_g, pt_g = tile_graph
+    want = None if commit == "frozen" else np.asarray(ref_scan(ref_g, p, scorer).part)
+    for block in (2049, 4096):
+        if commit == "frozen":
+            want = np.asarray(ref_chunked(ref_g, p, scorer, block=block,
+                                          compute_backend="xla").part)
+        port = pt_streaming.streaming_chunked_partition(pt_g, p, scorer, block=block,
+                                                        commit=commit, device="cpu")
+        np.testing.assert_array_equal(port.part.numpy(), want,
+                                      err_msg=f"{scorer}/{commit}/p={p}/block={block}")
 
 
 def test_numpy_oracle_leaves_the_reference_on_a_near_tie(graphs):

@@ -155,7 +155,10 @@ Phases; a failed check raises and the script exits non-zero:
               single launches. decode_attention is also timed
               at kimi_k2's attention widths (head_dim 112). ebg_membership's
               entry carries its main kernel's time (kernel_ms) and its
-              transpose's (transpose_ms) beside the whole call. Last, hash,
+              transpose's (transpose_ms) beside the whole call; the two
+              bitset transposes' entries their bare launches (kernel_ms)
+              and, bitwise, the sharded out-of-core path's keep [32, 16]
+              (sharded_ms, sharded_kernel_ms). Last, hash,
               DBH and CVC partition the full-width graph on the card,
               bitwise against a numpy splitmix64 written here, with their
               edges per second and metrics.
@@ -255,8 +258,9 @@ Phases; a failed check raises and the script exits non-zero:
               key ranges with NaN outside, timed beside its bound and SDPA;
               and head_dim 1,024 on the wide source (decode_attn_wide.cu:
               B 2, Hq 8 over 2, 2,048 keys; bf16 and f32 q, softcap 0 and
-              50), against the plain version, timed beside its bound and
-              SDPA (softcap 0). One {"lm_families": ...} stdout line.
+              50), against the plain version, timed (the wrapper and the
+              bare launch) beside its bound and SDPA (softcap 0). One
+              {"lm_families": ...} stdout line.
   8. lm_train the LM training path: llama3_2_3b at its published widths
               (3.21 B f32 parameters drawn on the card from seed 0) for 6
               steps and mamba2_780m whole for 4, each on one repeated batch
@@ -335,6 +339,7 @@ ATTN_CASES = (  # (entry name, batch, softcap)
     ("decode_attention.B1", 1, 50.0), ("decode_attention.B1.softcap0", 1, 0.0),
 )
 MEMB_EDGES = 1 << 22  # the membership slice of the full-width stream
+SHARDED_BITSET = (PARTS, 16)  # keep words of a block of 256 on the sharded out-of-core path
 WIDE_COMMIT = dict(parts=2048, block=8192)  # past 1,024 parts: the WIDE kernel
 # ebg_commit past one patched tile and one chain warp, on twitter_like: window
 # blocks compared, HDRF's block, the parts and block of the multi-warp streams.
@@ -2419,31 +2424,68 @@ def measure_commit_wide(dev):
     return out
 
 
+def transpose_launch(src, dst, p, to_memb):
+    """A zero-argument call of the transpose's C entry on fixed buffers (no
+    checks, allocation or count), for kernel_ms; checked to launch once."""
+    import ctypes
+
+    from repro_torch.kernels.dispatch import c_function, cuda_stream_handle
+
+    fn = c_function("ebg_commit", "ebg_memb_transpose",
+                    [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    vw = (src if to_memb else dst).shape[1]
+    args = (src.data_ptr(), dst.data_ptr(), p, vw, int(to_memb), cuda_stream_handle())
+    check(fn(*args) == 0, "ebg_memb_transpose: the bare launch failed")
+    return lambda: fn(*args)
+
+
 def measure_transposes(keep, launches):
-    """The commit's two bitset transposes on the full partition's bitset."""
+    """The commit's two bitset transposes on the full partition's bitset:
+    the wrapper's call (ms) and the bare C launch (kernel_ms), back to back;
+    also at the sharded out-of-core path's shape (a block's gathered bitset,
+    keep [32, 16]), bitwise against the plain versions, where a launch is
+    all there is to time."""
     from repro_torch.kernels import ebg_commit as ebg
 
     memb = compare_transposes(keep.device, keep)
+    gen = torch.Generator(device=keep.device).manual_seed(16)
+    small = torch.randint(-2**31, 2**31 - 1, SHARDED_BITSET, generator=gen, device=keep.device,
+                          dtype=torch.int32)
+    small_memb = compare_transposes(keep.device, small)
     p = keep.shape[0]
     entries = []
-    for name, fn, plain, src, dst in (
-        ("ebg_commit.keep_to_memb", lambda: ebg.keep_bits_to_memb(keep),
-         lambda: ebg.keep_bits_to_memb_plain(keep), keep, memb),
-        ("ebg_commit.memb_to_keep", lambda: ebg.memb_to_keep_bits(memb, p),
-         lambda: ebg.memb_to_keep_bits_plain(memb, p), memb, keep),
+    for name, fn, plain, src, dst, shapes in (
+        ("ebg_commit.keep_to_memb", ebg.keep_bits_to_memb, ebg.keep_bits_to_memb_plain, keep,
+         memb, ((keep, torch.empty_like(memb)), (small, torch.empty_like(small_memb)))),
+        ("ebg_commit.memb_to_keep", lambda m: ebg.memb_to_keep_bits(m, p),
+         lambda m: ebg.memb_to_keep_bits_plain(m, p), memb, keep,
+         ((memb, torch.empty_like(keep)), (small_memb, torch.empty_like(small)))),
     ):
+        to_memb = name.endswith("to_memb")
         io_bytes = nbytes(src, dst)
-        n_ops = 2.0 * 32 * src.numel()  # a bit test and a ballot a bit of each word
+        n_ops = 20.0 * src.numel()  # the butterfly: 5 rounds of a shuffle, shifts, a select
         bound = max(io_bytes / HBM_BYTES_PER_S, n_ops / F32_FLOPS)
+        (big_in, big_out), (small_in, small_out) = shapes
         entries.append(dict(
-            name=name, route="cuda", source="src/repro_torch/kernels/csrc/ebg_commit.cu",
+            name=name, route="cuda", source="src/repro_torch/kernels/csrc/memb_transpose.cuh",
             replaces="src/repro/kernels/ebg_commit.py:124", launches=launches.get(name, 0),
             max_abs_err=0.0,  # compare_transposes demands bitwise equality
-            ms=cuda_ms(fn, reps=20), plain_ms=cuda_ms(plain, reps=2), bound_ms=1e3 * bound,
+            ms=cuda_ms(lambda: fn(src), reps=50),
+            kernel_ms=cuda_ms(transpose_launch(big_in, big_out, p, to_memb), reps=50),
+            plain_ms=cuda_ms(lambda: plain(src), reps=2), bound_ms=1e3 * bound,
             bound_by="bytes" if io_bytes / HBM_BYTES_PER_S >= n_ops / F32_FLOPS else "operations",
             library_ms=None, library=None,
             shape=f"keep {tuple(keep.shape)} <-> memb {tuple(memb.shape)} int32",
+            sharded_ms=cuda_ms(lambda: fn(small_in), reps=200),
+            sharded_kernel_ms=cuda_ms(transpose_launch(small_in, small_out, p, to_memb),
+                                      reps=200),
+            sharded_bound_ms=1e3 * nbytes(small_in, small_out) / HBM_BYTES_PER_S,
+            sharded_shape=f"keep {tuple(small.shape)} <-> memb {tuple(small_memb.shape)}: a "
+                          f"block's gathered bitset on the sharded out-of-core path",
         ))
+    log("full: transposes " + ", ".join(
+        f"{e['name']} {e['ms']:.4f} ms (bare {e['kernel_ms']:.4f}; sharded shape "
+        f"{e['sharded_ms']:.4f}, bare {e['sharded_kernel_ms']:.4f})" for e in entries))
     return entries
 
 
@@ -2759,7 +2801,9 @@ def attention_entry(name, q, k, v, end, ranges, launches, shape, launches_of, so
                                          decode_attn.tile_keys(D, k.dtype))
         plan = f"{nsplit} splits"
     else:
-        plan = "scores, softmax and output launches"
+        sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+        plan = (f"{decode_attn.wide_split_count(B, end, Hkv, Hq // Hkv, sms)} splits, "
+                f"{decode_attn.wide_stages(Hq // Hkv, k.dtype)} stages (an H100's rule)")
     rtol, atol = ATTN_TOL[q.dtype]
     return dict(
         name=name, route="cuda", source=f"src/repro_torch/kernels/csrc/{source}.cu",
@@ -3261,14 +3305,42 @@ def measure_wide_attention(dev):
     return entry
 
 
+def wide_attention_launch(q, k, v, softcap, end):
+    """A zero-argument call of decode_attn_wide.cu's C entry over keys [0,
+    end) on fixed buffers (no checks, allocation, count or dispatch), for
+    kernel_ms; checked to launch once."""
+    import ctypes
+    import math
+
+    from repro_torch.kernels import decode_attn
+    from repro_torch.kernels.dispatch import c_function, cuda_stream_handle
+
+    (B, Hq, D), (S, Hkv) = q.shape, k.shape[1:3]
+    G = Hq // Hkv
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    nsplit = decode_attn.wide_split_count(B, end, Hkv, G, sms)
+    ws = torch.empty((max(decode_attn.wide_workspace_floats(B, Hkv, G, D, nsplit), 1),),
+                     dtype=torch.float32, device=q.device)
+    out = torch.empty_like(q)
+    fn = c_function("decode_attn_wide", "decode_attn_wide_launch",
+                    [ctypes.c_void_p] * 5 + [ctypes.c_longlong] + [ctypes.c_int] * 8
+                    + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p])
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), ws.data_ptr(), ws.numel(),
+            B, S, 0, end, Hkv, G, D, decode_attn.DTYPE_CODES[q.dtype, k.dtype],
+            1.0 / math.sqrt(D), float(softcap), nsplit, cuda_stream_handle())
+    check(fn(*args) == 0, "decode_attn_wide: the bare launch failed")
+    return lambda buffers=(ws, out): fn(*args)
+
+
 def measure_widest_attention(dev):
     """decode_attention past head_dim 512, on `decode_attn_wide.cu` (no
     config of either package reaches it) at WIDEST_ATTN, bf16 k and v: a
     bf16 and an f32 query, softcap 0 and 50, each held against the plain
     version at ATTN_TOL with its x1.01 control (the first also at key
-    ranges with NaN outside) and timed beside its bound; SDPA at softcap 0.
-    One kernels entry, the bf16 query without softcap; the other three
-    under `variants`."""
+    ranges with NaN outside) and timed beside its bound, the wrapper's call
+    (ms) and the bare C launch (kernel_ms); SDPA at softcap 0. One kernels
+    entry, the bf16 query without softcap; the other three under
+    `variants`."""
     c = WIDEST_ATTN
     q, k, v = attention_inputs(c["B"], c["Hq"], c["Hkv"], c["D"], c["S"], torch.bfloat16, dev,
                                seed=1024)
@@ -3276,16 +3348,21 @@ def measure_widest_attention(dev):
     launches_of = "no path: no config of either package has head_dim > 512"
     entry = attention_entry("decode_attention.d1024", q, k, v, c["S"],
                             ((0, c["S"] // 2 + 1), (37, c["S"] - 96)), 0, shape, launches_of)
+    entry["kernel_ms"] = cuda_ms(wide_attention_launch(q, k, v, 0.0, c["S"]), reps=50)
     entry["variants"] = {}
     for qt, softcap in ((torch.float32, 0.0), (torch.bfloat16, 50.0), (torch.float32, 50.0)):
-        e = attention_entry("decode_attention.d1024", q.to(qt), k, v, c["S"], (), 0, shape,
+        qv = q.to(qt)
+        e = attention_entry("decode_attention.d1024", qv, k, v, c["S"], (), 0, shape,
                             launches_of, softcap=softcap)
+        e["kernel_ms"] = cuda_ms(wide_attention_launch(qv, k, v, softcap, c["S"]), reps=50)
         entry["variants"][f"q {str(qt).replace('torch.', '')}, softcap {softcap:g}"] = {
             key: e[key] for key in ("max_abs_err", "over_limit", "control_over_limit", "ms",
-                                    "plain_ms", "bound_ms", "library_ms", "limit")}
-    log(f"decode_attention at head_dim {c['D']} (wide source): {entry['ms']:.4f} ms (bound "
-        f"{entry['bound_ms']:.4f}, SDPA {entry['library_ms']:.4f}); variants "
-        f"{ {k_: round(v_['ms'], 4) for k_, v_ in entry['variants'].items()} }")
+                                    "kernel_ms", "plain_ms", "bound_ms", "library_ms", "limit")}
+    log(f"decode_attention at head_dim {c['D']} (wide source): {entry['ms']:.4f} ms, bare "
+        f"{entry['kernel_ms']:.4f} (bound {entry['bound_ms']:.4f}, SDPA "
+        f"{entry['library_ms']:.4f}); variants "
+        + str({k_: (round(v_["ms"], 4), round(v_["kernel_ms"], 4))
+               for k_, v_ in entry["variants"].items()}))
     del q, k, v
     torch.cuda.empty_cache()
     return entry

@@ -22,7 +22,7 @@
 // gather is 2·W loads and a commit is one atomicOr a word.
 // `membt::transpose_kernel` (in memb_transpose.cuh; the wrappers
 // `keep_bits_to_memb` and `memb_to_keep_bits` of ebg_commit.py) converts at
-// the launch's start and end, a 32x32 bit block a warp, by ballots.
+// the launch's start and end, in tiles of 256 32x32 bit blocks a CTA.
 //
 // What bounds it on an H100: the per-edge chain is strictly sequential
 // (edge j+1's argmin needs edge j's counters), so the cost is the latency

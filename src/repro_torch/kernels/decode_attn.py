@@ -19,9 +19,11 @@ kernel, and anything else raises. head_dim 1 to 512 runs on
 its rows zero-padded in shared memory), which splits S across CTAs
 (`split_count`) and merges the splits' partial states in a second launch
 on the same stream. A wider head_dim runs on `csrc/decode_attn_wide.cu`
-(`kernel_source`): scores, softmax and output in three simple launches
-through an f32 workspace [B, Hq, end - start]; no size is refused. Each
-call counts once in `LAUNCHES` as "decode_attention".
+(`kernel_source`), also split-S with a merge launch, but over rows of
+1 KB and more: a split's keys (whole tiles of WIDE_TILE_KEYS, at most
+WIDE_MAX_TILES tiles: `wide_split_count`) are read K first, then V, in
+2 KB slices of a row, through a ring of `wide_stages` stages; no size is
+refused. Each call counts once in `LAUNCHES` as "decode_attention".
 
 The wrapper calls the custom op `torch.ops.repro_torch.decode_attention`
 (`torch.library.custom_op`), whose implementation is the dispatch above;
@@ -62,6 +64,16 @@ HEAD_DIMS = (32, 64, 128, 256, 512)  # the CUDA kernel's builds: 16-byte chunks,
 SPLIT_KEYS = 1024  # a split streams at most this many keys ...
 WAVE_CTAS = 2 * 3  # ... and the grid fills at least two waves of three CTAs an SM
 MAX_SPLITS = 1024
+# decode_attn_wide.cu's shape (its k-prefixed constants): items of 16 keys
+# × a 2 KB slice of a row (rows padded by 16 bytes), splits of at most 32
+# such tiles, a CTA an SM wanted, 2 to 6 stages a ring.
+WIDE_TILE_KEYS = 16
+WIDE_MAX_TILES = 32
+WIDE_SLICE_BYTES = 2048
+WIDE_STAGE_BYTES = WIDE_TILE_KEYS * (WIDE_SLICE_BYTES + 16)
+WIDE_WAVE_CTAS = 1
+WIDE_STAGES = (2, 6)
+H100_SMEM_OPTIN = 232_448  # an H100's cudaDevAttrMaxSharedMemoryPerBlockOptin
 
 
 def kernel_source(D: int) -> str:
@@ -94,12 +106,51 @@ def split_count(B: int, S: int, Hkv: int, G: int, sms: int, tile: int = 64) -> i
     """How many ranges of S the kernel splits the cache into: ranges of at
     most SPLIT_KEYS keys, and enough CTAs for WAVE_CTAS per SM, in whole
     tiles of `tile` keys and at most MAX_SPLITS."""
-    gc = min(8, 1 << (G - 1).bit_length())  # query rows a CTA (the kernel's rule)
-    rows = B * Hkv * -(-G // gc)
+    rows = B * Hkv * -(-G // group_rows(G))
     tiles = -(-S // tile)
     want = max(-(-S // SPLIT_KEYS), -(-WAVE_CTAS * sms // rows))
     per = -(-tiles // min(want, tiles, MAX_SPLITS))  # tiles a split
     return -(-tiles // per)
+
+
+def group_rows(G: int) -> int:
+    """Query rows a CTA of either kernel takes: the least power of two >= G,
+    at most 8."""
+    return min(8, 1 << (G - 1).bit_length())
+
+
+def wide_split_count(B: int, S: int, Hkv: int, G: int, sms: int) -> int:
+    """How many ranges of S `decode_attn_wide.cu` splits the keys into:
+    whole tiles of WIDE_TILE_KEYS, at most WIDE_MAX_TILES tiles a split (a
+    split's scores sit in shared memory), and enough CTAs for
+    WIDE_WAVE_CTAS per SM. The kernel re-derives the same count."""
+    rows = B * Hkv * -(-G // group_rows(G))
+    tiles = -(-S // WIDE_TILE_KEYS)
+    want = max(-(-tiles // WIDE_MAX_TILES), -(-WIDE_WAVE_CTAS * sms // rows))
+    per = -(-tiles // min(want, tiles))  # tiles a split
+    return -(-tiles // per)
+
+
+def wide_stages(G: int, dtype: torch.dtype, optin: int = H100_SMEM_OPTIN) -> int:
+    """Stages of `decode_attn_wide.cu`'s ring for a cache of `dtype` (its
+    `pick_stages`): the most, 2 to 6, with which a CTA fits the shared
+    memory a block may take (the kernel reads the card's); 0 if two do not."""
+    gc, esize = group_rows(G), torch.finfo(dtype).bits // 8
+    # full and empty barriers; a row's q slice in f32, two items' score sums
+    # of two warps, the scores, (m, l)
+    fixed = 16 * WIDE_STAGES[1] + gc * (WIDE_SLICE_BYTES // esize * 4 + 16 * WIDE_TILE_KEYS
+                                        + 4 * WIDE_MAX_TILES * WIDE_TILE_KEYS + 8)
+    for n in range(WIDE_STAGES[1], WIDE_STAGES[0] - 1, -1):
+        if fixed + n * WIDE_STAGE_BYTES <= optin:
+            return n
+    return 0
+
+
+def wide_workspace_floats(B: int, Hkv: int, G: int, D: int, nsplit: int) -> int:
+    """f32 workspace of a `decode_attn_wide.cu` launch (its
+    `decode_attn_wide_workspace`): each split's unnormalised [D] row and
+    (m, l) for every query head; none for one split."""
+    return 0 if nsplit <= 1 else B * Hkv * G * nsplit * (D + 2)
 
 
 _SMS: dict = {}
@@ -261,16 +312,17 @@ def _decode_attention_wide(q, k, v, softcap, start, end):
     on checked arguments."""
     (B, Hq, D), (S, Hkv) = q.shape, k.shape[1:3]
     G = Hq // Hkv
-    workspace = c_function("decode_attn_wide", "decode_attn_wide_workspace", [ctypes.c_int] * 4,
-                           ctypes.c_longlong)(B, Hkv, G, end - start)
-    ws = torch.empty((workspace,), dtype=torch.float32, device=q.device)
+    nsplit = wide_split_count(B, end - start, Hkv, G, _sm_count(q.device))
+    workspace = c_function("decode_attn_wide", "decode_attn_wide_workspace", [ctypes.c_int] * 5,
+                           ctypes.c_longlong)(B, Hkv, G, D, nsplit)
+    ws = torch.empty((max(workspace, 1),), dtype=torch.float32, device=q.device)
     out = torch.empty_like(q)
     fn = c_function("decode_attn_wide", "decode_attn_wide_launch",
                     [ctypes.c_void_p] * 5 + [ctypes.c_longlong] + [ctypes.c_int] * 8
-                    + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+                    + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p])
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), ws.data_ptr(),
              ws.numel(), B, S, start, end, Hkv, G, D, DTYPE_CODES[q.dtype, k.dtype],
-             1.0 / math.sqrt(D), float(softcap), cuda_stream_handle())
+             1.0 / math.sqrt(D), float(softcap), nsplit, cuda_stream_handle())
     check_launch("decode_attn_wide", err)
     LAUNCHES["decode_attention"] += 1
     return out

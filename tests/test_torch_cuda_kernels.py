@@ -403,22 +403,35 @@ def test_cuda_ebg_commit_matches_plain(cuda_device, p, block, window, balance, w
             assert torch.equal(g.cpu(), w)
 
 
+# (p, V) of the transposes: every p at V of one word, a ragged word, and
+# vertex words that no tile width (256, 128, 64 or 32) divides; the full
+# width's 2^22 vertices and 5 more at up to two memb words; the sharded
+# out-of-core path's keep [32, 16].
+TRANSPOSE_SHAPES = ([(p, V) for p in (1, 31, 32, 33, 64, 1000, 1025, 2048)
+                     for V in (1, 33, 1000, 100_005)]
+                    + [(p, (1 << 22) + 5) for p in (1, 32, 33)] + [(32, 512)])
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("p", [1, 31, 32, 33, 64])
-@pytest.mark.parametrize("V", [1, 33, 1000, (1 << 20) + 5])
+@pytest.mark.parametrize("p,V", TRANSPOSE_SHAPES)
 def test_cuda_memb_transposes_match_plain(cuda_device, p, V):
+    """Both transposes bitwise against their plain versions (run on the
+    card: the bitsets reach 2^22 vertices), the round trip, and memb ->
+    keep from random words (the bits of parts >= p dropped)."""
     rng = np.random.default_rng(p * 7 + V)
     keep = torch.from_numpy(
-        rng.integers(-2**31, 2**31, (p, (V + 31) // 32), dtype=np.int64).astype(np.int32))
-    memb = pt_ebg.keep_bits_to_memb(keep.to(cuda_device))
+        rng.integers(-2**31, 2**31, (p, (V + 31) // 32), dtype=np.int64).astype(np.int32)
+    ).to(cuda_device)
+    memb = pt_ebg.keep_bits_to_memb(keep)
     torch.cuda.synchronize()
-    assert torch.equal(memb.cpu(), pt_ebg.keep_bits_to_memb_plain(keep))
+    assert torch.equal(memb, pt_ebg.keep_bits_to_memb_plain(keep))
     back = pt_ebg.memb_to_keep_bits(memb, p)
     torch.cuda.synchronize()
-    assert torch.equal(back.cpu(), keep)
+    assert torch.equal(back, keep)
     memb_rand = torch.from_numpy(
-        rng.integers(-2**31, 2**31, tuple(memb.shape), dtype=np.int64).astype(np.int32))
-    assert torch.equal(pt_ebg.memb_to_keep_bits(memb_rand.to(cuda_device), p).cpu(),
+        rng.integers(-2**31, 2**31, tuple(memb.shape), dtype=np.int64).astype(np.int32)
+    ).to(cuda_device)
+    assert torch.equal(pt_ebg.memb_to_keep_bits(memb_rand, p),
                        pt_ebg.memb_to_keep_bits_plain(memb_rand, p))
 
 

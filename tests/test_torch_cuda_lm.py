@@ -344,28 +344,46 @@ def test_cuda_decode_attention_head_dims_to_512(cuda_device, D, dtypes, softcap)
                                rtol=rtol, atol=atol)
 
 
+# The wide kernel's cases (B, G, S_max, key ranges): one key; 31, a ragged
+# tile; 700 with 1, 4 and 8 query rows a kv head; 20,001 in 66 splits of 19
+# tiles whose last is short (the split count divides no tile count).
+WIDE_CASES = ((1, 1, 1, ((0, 1),)),
+              (3, 4, 31, ((0, 31), (0, 1), (5, 29))),
+              *((B, G, 700, ((0, 700), (0, 1), (5, 77), (100, 699)))
+                for B, G in ((1, 1), (3, 4), (2, 8))),
+              (1, 4, 20_001, ((0, 20_001), (37, 19_905))))
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", [513, 640, 1024])
+@pytest.mark.parametrize("D", [513, 640, 1024, 1536, 4096])
 @pytest.mark.parametrize("dtypes", list(WIDE))
-@pytest.mark.parametrize("softcap", [0.0, 50.0])
+@pytest.mark.parametrize("softcap", [0.0, 30.0, 50.0])
 def test_cuda_decode_attention_wide_head_dims(cuda_device, D, dtypes, softcap):
-    """head_dim above 512 on `decode_attn_wide.cu` (scores, softmax, output
-    through an f32 workspace), with 1, 4 and 8 query rows a kv head: the
-    whole cache, one key, and key ranges of a cache whose keys outside the
-    range are NaN; against the plain version within the split-S builds'
-    limits, with the x1.01 control; one launch counted a call."""
+    """head_dim above 512 on `decode_attn_wide.cu` (split-S over 2 KB slices
+    of a row, a merge launch), with 1, 4 and 8 query rows a kv head: one
+    key, a ragged tile, and 700 and 20,001 keys whose split count divides
+    no tile count, at the whole cache and at key ranges of a cache whose
+    keys outside the range are NaN; against the plain version (on the
+    card: the inputs reach 1.3 GB) within the split-S builds' limits, with
+    the x1.01 control; one launch counted a call."""
     from repro_torch.kernels import decode_attn as pt_attn
     from repro_torch.kernels import ops as pt_ops
 
     qt, kt = WIDE[dtypes]
     rtol, atol = ATTN_TOL[qt]
-    gen = torch.Generator().manual_seed(D)
-    Hkv, S_max = 2, 700
+    gen = torch.Generator(device=cuda_device).manual_seed(D)
+    Hkv = 2
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
     assert pt_attn.kernel_source(D) == "decode_attn_wide"
-    for B, G in ((1, 1), (3, 4), (2, 8)):
-        q = torch.randn((B, Hkv * G, D), generator=gen).to(qt)
-        k, v = (torch.randn((B, S_max, Hkv, D), generator=gen).to(kt) for _ in range(2))
-        for start, end in ((0, S_max), (0, 1), (5, 77), (100, S_max - 1)):
+    for B, G, S_max, ranges in WIDE_CASES:
+        tiles = -(-S_max // pt_attn.WIDE_TILE_KEYS)
+        nsplit = pt_attn.wide_split_count(B, S_max, Hkv, G, sms)
+        if S_max == 20_001:
+            assert nsplit > 1 and tiles % -(-tiles // nsplit)
+        q = torch.randn((B, Hkv * G, D), generator=gen, device=cuda_device).to(qt)
+        k, v = (torch.randn((B, S_max, Hkv, D), generator=gen, device=cuda_device).to(kt)
+                for _ in range(2))
+        for start, end in ranges:
             kd, vd = k.clone(), v.clone()
             for t in (kd, vd):
                 t[:, :start] = float("nan")
@@ -373,12 +391,13 @@ def test_cuda_decode_attention_wide_head_dims(cuda_device, D, dtypes, softcap):
             want = pt_attn.decode_attention_plain(q, k[:, start:end], v[:, start:end],
                                                   softcap=softcap).float()
             before = LAUNCHES["decode_attention"]
-            got = pt_ops.decode_attention(q.to(cuda_device), kd.to(cuda_device),
-                                          vd.to(cuda_device), softcap=softcap, start=start,
-                                          end=end)
+            got = pt_ops.decode_attention(q, kd, vd, softcap=softcap, start=start, end=end)
             torch.cuda.synchronize()
             assert LAUNCHES["decode_attention"] == before + 1
             assert got.dtype == qt and got.shape == q.shape
-            got = got.cpu().float()
+            got = got.float()
             torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
             assert not torch.allclose(got * 1.01, want, rtol=rtol, atol=atol)
+            del kd, vd
+        del q, k, v
+        torch.cuda.empty_cache()

@@ -1,9 +1,12 @@
 """The commit kernel's bitset layouts on the CPU: the plain transposes
 between the public packed bitset `keep_bits` [p, ⌈V/32⌉] and the CUDA
 path's vertex-major `memb` [32·⌈V/32⌉, ⌈p/32⌉] against a numpy bit loop,
-their round trips, the wrappers' CPU dispatch and argument checks, and the
-split rule of `decode_attention`'s split-S kernel. Exact; torch and numpy
-only."""
+their round trips, a numpy model of `csrc/memb_transpose.cuh`'s tiles
+(swizzled shared memory, the five-round butterfly) against them, the
+wrappers' CPU dispatch and argument checks, and the split rules of
+`decode_attention`'s split-S kernels (`decode_attn.cu`, and
+`decode_attn_wide.cu`'s splits, stages and workspace). Exact; torch and
+numpy only."""
 import numpy as np
 import pytest
 import torch
@@ -56,6 +59,94 @@ def test_memb_transposes_round_trip(p, V):
     live = [(1 << min(32, p - 32 * w)) - 1 for w in range((p + 31) // 32)]  # parts < p
     mask = torch.tensor(np.array(live, np.uint64).astype(np.uint32).view(np.int32))
     assert torch.equal(back, memb & mask)
+
+
+def _butterfly(words: np.ndarray) -> np.ndarray:
+    """`transpose32` over a warp's 32 lanes: round j trades, with lane ^ j,
+    the j-bit halves of each 2j-bit group under mask 0xFFFFFFFF / (2^j + 1)."""
+    a = words.astype(np.uint64)
+    lanes = np.arange(32)
+    for j in (16, 8, 4, 2, 1):
+        m = np.uint64(0xFFFFFFFF // ((1 << j) + 1))
+        nm = np.uint64(0xFFFFFFFF) ^ m
+        b = a[lanes ^ j]
+        hi = (a & nm) | ((b >> np.uint64(j)) & m)
+        lo = (a & m) | ((b << np.uint64(j)) & nm)
+        a = np.where(lanes & j, hi, lo) & np.uint64(0xFFFFFFFF)
+    return a.astype(np.uint32)
+
+
+def _tile_model(src: np.ndarray, p: int, vw: int, to_memb: bool) -> np.ndarray:
+    """csrc/memb_transpose.cuh's kernel, tile by tile, in numpy: WT memb
+    words × T = 256 / WT vertex words a CTA; the keep tile holds word c of
+    part row r at c ^ (r mod 32), the memb tile word w of vertex row x at
+    w ^ (x mod 32)·WT/32; a warp reads one 32x32 block of either a word a
+    lane, transposes it by the butterfly and writes it back in the other
+    layout; parts >= p read 0 and are not written."""
+    W = (p + 31) // 32
+    WT = 1 if W == 1 else 2 if W == 2 else 4 if W <= 4 else 8
+    T = 256 // WT
+    dst = np.full((32 * vw, W) if to_memb else (p, vw), 0xDEADBEEF, np.uint32)
+    lanes = np.arange(32)
+    for c0 in range(0, vw, T):
+        for w0 in range(0, W, WT):
+            ncols, nw, prows = min(T, vw - c0), min(WT, W - w0), p - 32 * w0
+            s = np.zeros(8192, np.uint32)
+            r, c = np.divmod(np.arange(8192), T)        # keep tile: part row, vertex word
+            row, col = np.divmod(np.arange(8192), WT)   # memb tile: vertex row, memb word
+            keep_at = r * T + (c ^ (r & 31))
+            memb_at = row * WT + (col ^ ((row & 31) // (32 // WT)))
+            if to_memb:
+                ok = (r < prows) & (c < ncols)
+                s[keep_at[ok]] = src[32 * w0 + r[ok], c0 + c[ok]]
+            else:
+                ok = (row < 32 * ncols) & (col < nw)
+                s[memb_at[ok]] = src[32 * c0 + row[ok], w0 + col[ok]]
+            out = {}
+            for b in range(256):
+                wi, cb = divmod(b, T)
+                if to_memb:
+                    out[b] = _butterfly(s[(32 * wi + lanes) * T + (cb ^ lanes)])
+                else:
+                    out[b] = _butterfly(s[(32 * cb + lanes) * WT + (wi ^ (lanes // (32 // WT)))])
+            for b in range(256):
+                wi, cb = divmod(b, T)
+                if to_memb:
+                    s[(32 * cb + lanes) * WT + (wi ^ (lanes // (32 // WT)))] = out[b]
+                else:
+                    s[(32 * wi + lanes) * T + (cb ^ lanes)] = out[b]
+            if to_memb:
+                ok = (row < 32 * ncols) & (col < nw)
+                dst[32 * c0 + row[ok], w0 + col[ok]] = s[memb_at[ok]]
+            else:
+                ok = (r < prows) & (c < ncols)
+                dst[32 * w0 + r[ok], c0 + c[ok]] = s[keep_at[ok]]
+    return dst
+
+
+def test_butterfly_transposes_a_block():
+    """Lane x of the butterfly's result holds bit x of every lane's word."""
+    words = np.random.default_rng(3).integers(0, 2**32, 32, dtype=np.uint64).astype(np.uint32)
+    got = _butterfly(words)
+    bits = (words[:, None] >> np.arange(32, dtype=np.uint32)) & 1  # [lane i, bit x]
+    want = (bits.T.astype(np.uint64) << np.arange(32, dtype=np.uint64)).sum(1)
+    np.testing.assert_array_equal(got, want.astype(np.uint32))
+
+
+@pytest.mark.parametrize("p", [1, 31, 33, 64, 100, 300])
+@pytest.mark.parametrize("V", [1, 1000, 9000])
+def test_transpose_tile_model_matches_plain(p, V):
+    """The kernel's tiles, swizzles and butterfly (modelled in numpy) give
+    the plain transposes bit for bit, with ragged words, parts and W."""
+    keep = _keep(p, V, seed=7 * p + V)
+    vw = keep.shape[1]
+    memb = _tile_model(keep.numpy().view(np.uint32), p, vw, True)
+    np.testing.assert_array_equal(memb,
+                                  pt_ebg.keep_bits_to_memb_plain(keep).numpy().view(np.uint32))
+    rand = _keep(32 * vw, 32 * ((p + 31) // 32), seed=V)
+    np.testing.assert_array_equal(
+        _tile_model(rand.numpy().view(np.uint32), p, vw, False),
+        pt_ebg.memb_to_keep_bits_plain(rand, p).numpy().view(np.uint32))
 
 
 def test_transpose_wrappers_run_the_plain_version_on_the_cpu():
@@ -121,3 +212,45 @@ def test_decode_padded_widths_reach_512():
     with pytest.raises(ValueError, match="head_dim up to 512, got 513; wider rows run on "
                                          "decode_attn_wide.cu"):
         pt_attn.padded_dim(513)
+
+
+@pytest.mark.parametrize("B,S,Hkv,G", [(2, 2048, 2, 4), (1, 1, 2, 8), (1, 31, 2, 1),
+                                       (1, 20_001, 2, 4), (8, 32_768, 8, 4), (1, 10**6, 1, 16),
+                                       (64, 4096, 8, 3)])
+def test_decode_wide_split_count(B, S, Hkv, G):
+    """decode_attn_wide.cu's splits: whole tiles of WIDE_TILE_KEYS, no empty
+    split, at most WIDE_MAX_TILES tiles a split (its scores fit in shared
+    memory) however long the range, about a CTA an SM where the keys allow,
+    and the kernel's re-derivation (the last split takes what is left) gives
+    the count back. The bench shape splits 4 rows into 32 of 64 keys."""
+    sms = 132
+    nsplit = pt_attn.wide_split_count(B, S, Hkv, G, sms)
+    tiles = -(-S // pt_attn.WIDE_TILE_KEYS)
+    per = -(-tiles // nsplit)
+    assert 1 <= nsplit <= tiles
+    assert per <= pt_attn.WIDE_MAX_TILES
+    assert (nsplit - 1) * per < tiles
+    assert -(-tiles // per) == nsplit
+    rows = B * Hkv * -(-G // pt_attn.group_rows(G))
+    if tiles >= -(-sms // rows):
+        assert rows * nsplit >= sms * pt_attn.WIDE_WAVE_CTAS - rows * (per - 1)
+    if (B, S, Hkv, G) == (2, 2048, 2, 4):
+        assert (rows, nsplit, per * pt_attn.WIDE_TILE_KEYS) == (4, 32, 64)
+    if S == 20_001:
+        assert tiles % per  # the last split is short
+
+
+def test_decode_wide_stages_and_workspace():
+    """The ring's stages from an H100's 227 KB a block (the kernel reads the
+    card's): 6 stages of 33 KB at up to 4 query rows a CTA, 5 at 8; none
+    below two; the workspace holds each split's unnormalised row and (m, l)
+    for every query head, and nothing for one split."""
+    assert pt_attn.WIDE_STAGE_BYTES == 16 * (2048 + 16)
+    for dtype in (torch.bfloat16, torch.float32):
+        assert [pt_attn.wide_stages(G, dtype) for G in (1, 2, 3, 4, 5, 8)] == [6, 6, 6, 6, 5, 5]
+        assert pt_attn.wide_stages(4, dtype, optin=48 * 1024) == 0
+        assert pt_attn.wide_stages(1, dtype, optin=100 * 1024) == 2
+    assert [pt_attn.group_rows(G) for G in (1, 2, 3, 4, 5, 8, 16)] == [1, 2, 4, 4, 8, 8, 8]
+    assert pt_attn.wide_workspace_floats(2, 2, 4, 1024, 32) == 2 * 8 * 32 * 1026
+    assert pt_attn.wide_workspace_floats(2, 2, 4, 1024, 1) == 0
+    assert pt_attn.wide_workspace_floats(1, 3, 5, 513, 7) == 15 * 7 * 515

@@ -74,6 +74,25 @@ Phases; a failed check raises and the script exits non-zero:
               beside its bytes bound, into ebg_commit's kernels entry
               ("tiled"). It runs after the training phase, in the
               full-width graph's generation wait.
+  4c. examples
+              the four example twins (examples/*_torch.py), each run as
+              `python examples/<name>_torch.py` runs it, in this process
+              (runpy) with no flag, so on the card, at the reference
+              examples' own sizes; the launch counts zeroed just before
+              each and read just after. quickstart (tiny_powerlaw, p = 8,
+              EBG and DBH, then CC): its lines equal the same twin's with
+              --device cpu and the reference example's EBG and DBH lines
+              (QUICKSTART_LINES); ebg_commit, both bitset transposes and
+              bsp_superstep.min launched. serve_lm (qwen3_4b reduced, 4 x
+              24 tokens): decode_attention exactly the config's attention
+              layers x 24 times, nothing else. train_lm (preset tiny, 200
+              steps, a fresh temporary --ckpt-dir): the loss dropped, step
+              200 saved, no launch, and a rerun on that directory refuses
+              with a message that names it. expert_placement: the
+              reference's two lines (PLACEMENT_LINES), no launch. One
+              {"examples": ...} stdout line (walls, launches); each kernels
+              entry carries its examples_launches. It runs after the
+              training phase and before 4b, in the generation wait.
   5. full     the full-width path: R-MAT with LiveJournal's scale and skew
               (2^22 vertices, 2^26 edges; generated on the host in a thread
               that main starts after phase 0, beside phases 1-4), p=32,
@@ -161,7 +180,10 @@ Phases; a failed check raises and the script exits non-zero:
               (sharded_ms, sharded_kernel_ms). Last, hash,
               DBH and CVC partition the full-width graph on the card,
               bitwise against a numpy splitmix64 written here, with their
-              edges per second and metrics.
+              edges per second and metrics; the splitmix64 and the
+              metrics are host numpy and run in threads (one a
+              partitioner) beside phases 5b-7, joined (a mismatch fails
+              the run) before the kernels line.
   5b. graph_dryrun
               the graph engine's production dry-run (after the distributed
               phase has destroyed its NCCL group): run_graph_dryrun at p =
@@ -284,7 +306,7 @@ Phases; a failed check raises and the script exits non-zero:
               phase 5c and phases 6-8 alone.
 
 Prints the card's name and power limit, the {"analysis": ...}, {"serve": ...},
-{"graph_dryrun": ...}, {"lm_serve": ...},
+{"graph_dryrun": ...}, {"examples": ...}, {"lm_dryrun": ...}, {"lm_serve": ...},
 {"lm_families": ...}, {"lm_train": ...} and {"kernels": [...]} lines, and last
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 It needs the repository around it and a CUDA card; without either it fails.
@@ -293,14 +315,18 @@ from __future__ import annotations
 
 import argparse
 import atexit
+import contextlib
+import io
 import json
 import os
+import runpy
 import shutil
 import subprocess
 import sys
 import tempfile
 import time
 import types
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -476,6 +502,23 @@ TRAIN_REDUCED = dict(batch=2, seq=32, enc_len=12)
 TRAIN_RESUME = ["--preset", "small", "--steps", "6", "--ckpt-every", "3", "--batch", "8",
                 "--seq", "128", "--log-every", "100"]
 RESUME_CUBLAS = ":4096:8"
+# The examples phase (4c): the four example twins (examples/*_torch.py) run as
+# scripts with no flag, at the reference examples' own sizes. The reference
+# examples' lines (examples/quickstart.py and expert_placement.py under JAX
+# on the CPU), which the twins must print on the card.
+EXAMPLES = ROOT / "examples"
+QUICKSTART_LINES = (
+    "EBG: replication=2.30 edge_imb=1.04 vertex_imb=1.04 | CC components=2 supersteps=2 "
+    "messages=2128 max/mean=1.117",
+    "DBH: replication=2.58 edge_imb=1.19 vertex_imb=1.08 | CC components=2 supersteps=3 "
+    "messages=2576 max/mean=1.143",
+)
+PLACEMENT_LINES = (
+    "EBG placement: load max/mean=1.659 cross-device pair traffic=86.6%",
+    "random placement: load max/mean=2.185 cross-device pair traffic=84.4%",
+)
+SERVE_EXAMPLE = dict(arch="qwen3_4b", tokens=24, batch=4)  # serve_lm_torch.py's defaults
+TRAIN_EXAMPLE_STEPS = 200  # train_lm_torch.py's default
 
 
 def log(msg: str) -> None:
@@ -1191,17 +1234,19 @@ def phase_baselines(dev):
     return rows
 
 
-def measure_hash_family(g, dev):
+def measure_hash_family(g, dev, pool):
     """hash, DBH and CVC on the full-width graph on the card: each call's
     wall from host edges (the upload included) and its device time with
-    the edges already on the card; `part` bitwise against the numpy
-    splitmix64 above; the partition's metrics."""
-    from repro_torch.core import PARTITIONERS, partition_metrics
+    the edges already on the card. The host checks (`part` bitwise against
+    the numpy splitmix64 above, and the partition's metrics) run in `pool`,
+    one task a partitioner, beside the later phases: returns the card's
+    figures and the checks' futures, which fill in the metrics and raise on
+    a mismatch."""
+    from repro_torch.core import PARTITIONERS
     from repro_torch.core.types import Graph
 
-    src, dst = g.src.numpy(), g.dst.numpy()
     on_card = Graph(src=g.src.to(dev), dst=g.dst.to(dev), num_vertices=g.num_vertices)
-    out = {}
+    out, checks = {}, []
     for name in HASH_FAMILY:
         fn = PARTITIONERS[name]
         sync()
@@ -1210,26 +1255,38 @@ def measure_hash_family(g, dev):
         sync()
         wall_s = time.perf_counter() - t
         check(res.part.device.type == "cuda", f"{name}: the partition is not on the card")
-        want = np_hash_family(name, src, dst, g.num_vertices, PARTS)
-        check(np.array_equal(res.part.cpu().numpy(), want),
-              f"{name} at full width differs from the numpy splitmix64")
+        check(res.order is None, f"{name}: a hash partition has no edge order")
+        part = res.part.cpu().numpy()
         device_ms = cuda_ms(lambda: fn(on_card, PARTS, device=dev), reps=5)
-        t = time.perf_counter()
-        m = partition_metrics(g, res)
-        metrics_s = time.perf_counter() - t
         out[name] = dict(wall_s=wall_s, device_ms=device_ms,
                          edges_per_s=g.num_edges / wall_s,
-                         edges_per_s_on_card=g.num_edges / (device_ms / 1e3),
-                         replication_factor=m.replication_factor,
-                         edge_imbalance=m.edge_imbalance, vertex_imbalance=m.vertex_imbalance,
-                         metrics_s=metrics_s)
-        log(f"full: {name} == numpy splitmix64; {g.num_edges / wall_s:.4g} edges/s with the "
-            f"upload, {out[name]['edges_per_s_on_card']:.4g} on the card; RF "
-            f"{m.replication_factor:.6f} EI {m.edge_imbalance:.6f} VI {m.vertex_imbalance:.6f}")
+                         edges_per_s_on_card=g.num_edges / (device_ms / 1e3))
+        log(f"full: {name} {g.num_edges / wall_s:.4g} edges/s with the upload, "
+            f"{out[name]['edges_per_s_on_card']:.4g} on the card (host checks in a thread)")
+        checks.append(pool.submit(hash_family_check, g, name, part, out[name]))
         del res
     del on_card
     torch.cuda.empty_cache()
-    return out
+    return out, checks
+
+
+def hash_family_check(g, name, part, row):
+    """One hash partition's host checks (host numpy, no card): bitwise
+    against the numpy splitmix64, then its metrics into `row`. Returns the
+    task's wall."""
+    from repro_torch.core import partition_metrics
+    from repro_torch.core.types import PartitionResult
+
+    t0 = time.perf_counter()
+    want = np_hash_family(name, g.src.numpy(), g.dst.numpy(), g.num_vertices, PARTS)
+    check(np.array_equal(part, want), f"{name} at full width differs from the numpy splitmix64")
+    t = time.perf_counter()
+    m = partition_metrics(g, PartitionResult(part=torch.from_numpy(part), num_parts=PARTS))
+    row.update(replication_factor=m.replication_factor, edge_imbalance=m.edge_imbalance,
+               vertex_imbalance=m.vertex_imbalance, metrics_s=time.perf_counter() - t)
+    log(f"full: {name} == numpy splitmix64; RF {m.replication_factor:.6f} EI "
+        f"{m.edge_imbalance:.6f} VI {m.vertex_imbalance:.6f}")
+    return time.perf_counter() - t0
 
 
 # --------------------------------------------------- full width: oracles
@@ -1337,11 +1394,11 @@ def phase_commit_tiled(dev):
     return dict(entries=entries, phase_s=time.perf_counter() - t0)
 
 
-def phase_full(dev, graph):
+def phase_full(dev, graph, host_pool):
     """`graph`: the future of the full-width R-MAT graph and its wall (main
-    starts it in a thread after the analysis phase)."""
-    from concurrent.futures import ThreadPoolExecutor
-
+    starts it in a thread after the analysis phase); `host_pool`: the
+    threads that take the hash family's host checks. Returns the summary,
+    the kernels entries and the futures of those checks."""
     from repro_torch.api.pipeline import GraphPipeline
     from repro_torch.kernels import dispatch
 
@@ -1444,8 +1501,8 @@ def phase_full(dev, graph):
         outofcore_stream_ms=outofcore["commit_stream_ms"],
         outofcore_stream_ms_per_block=outofcore["commit_ms_per_block"],
         outofcore_block_call_ms=outofcore["block_call_ms"])
-    summary["hash_family"] = measure_hash_family(g, dev)
-    return summary, kernels
+    summary["hash_family"], hash_checks = measure_hash_family(g, dev, host_pool)
+    return summary, kernels, hash_checks
 
 
 def phase_serve(g, pipe, dev):
@@ -3660,6 +3717,102 @@ def phase_lm_train(dev):
     return out
 
 
+# ---------------------------------------------------- the example twins
+
+
+def run_example(name, *args):
+    """Run examples/<name>_torch.py as `python examples/<name>_torch.py
+    args...` does, in this process (runpy, __name__ == "__main__"), with the
+    launch counts zeroed just before and read just after. Returns its
+    stdout, its wall and the launches."""
+    from repro_torch.kernels import dispatch
+
+    path = EXAMPLES / f"{name}_torch.py"
+    argv, sys.argv = sys.argv, [str(path), *args]
+    buf = io.StringIO()
+    dispatch.reset_launches()
+    t = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            runpy.run_path(str(path), run_name="__main__")
+        sync()
+    finally:
+        sys.argv = argv
+    wall = time.perf_counter() - t
+    launches = dict(dispatch.LAUNCHES)
+    log(f"examples: {path.name} {' '.join(args)} in {wall:.2f} s, launches {launches}")
+    return buf.getvalue(), wall, launches
+
+
+def phase_examples():
+    """The four example twins on the card (module docstring, phase 4c)."""
+    from repro_torch import configs
+    from repro_torch.checkpoint.ckpt import latest_step
+
+    t_phase = time.perf_counter()
+    walls, launches = {}, {}
+    qs, walls["quickstart"], launches["quickstart"] = run_example("quickstart")
+    qs_cpu, walls["quickstart_cpu"], cpu_launches = run_example("quickstart", "--device", "cpu")
+    check(qs == qs_cpu, f"quickstart: the card's lines differ from --device cpu's:\n{qs}\n"
+                        f"{qs_cpu}")
+    check(not cpu_launches, f"quickstart --device cpu launched {cpu_launches}")
+    got = tuple(line for line in qs.splitlines() if line.startswith(("EBG:", "DBH:")))
+    check(got == QUICKSTART_LINES, f"quickstart: {got} != the reference's {QUICKSTART_LINES}")
+    for k in ("ebg_commit", "ebg_commit.keep_to_memb", "ebg_commit.memb_to_keep",
+              "bsp_superstep.min"):
+        check(launches["quickstart"].get(k, 0) >= 1, f"quickstart launched {k} no time")
+
+    text, walls["serve_lm"], launches["serve_lm"] = run_example("serve_lm")
+    cfg = configs.reduced_config(SERVE_EXAMPLE["arch"])
+    attn_layers = sum(cfg.group[l % len(cfg.group)].kind == "attn" for l in range(cfg.n_layers))
+    want = attn_layers * SERVE_EXAMPLE["tokens"]
+    check(launches["serve_lm"] == {"decode_attention": want},
+          f"serve_lm launched {launches['serve_lm']}, not decode_attention {attn_layers} x "
+          f"{SERVE_EXAMPLE['tokens']} times")
+    total = SERVE_EXAMPLE["batch"] * SERVE_EXAMPLE["tokens"]
+    check(f"generated {total} tokens" in text, f"serve_lm printed {text!r}")
+    sample = [int(x) for x in text.split("sample: [", 1)[1].split("]", 1)[0].split()]
+    check(len(sample) == 16 and all(0 <= x < cfg.vocab for x in sample),
+          f"serve_lm's sample {sample}")
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_example_") as tmp:
+        text, walls["train_lm"], launches["train_lm"] = run_example("train_lm", "--ckpt-dir",
+                                                                     tmp)
+        check(latest_step(tmp) == TRAIN_EXAMPLE_STEPS,
+              f"train_lm left step {latest_step(tmp)}, not {TRAIN_EXAMPLE_STEPS}")
+        drop = float(text.split("loss drop over run: ", 1)[1].split()[0])
+        check(drop > 0, f"train_lm: the loss did not drop ({drop})")
+        try:  # a rerun on the finished directory refuses, naming it
+            run_example("train_lm", "--ckpt-dir", tmp)
+            refused = None
+        except SystemExit as e:
+            refused = str(e.code)
+        check(refused is not None and tmp in refused, f"train_lm's rerun: {refused!r}")
+    text, walls["expert_placement"], launches["expert_placement"] = run_example(
+        "expert_placement")
+    got = tuple(text.splitlines()[:2])
+    check(got == PLACEMENT_LINES, f"expert_placement: {got} != the reference's")
+    for name in ("train_lm", "expert_placement"):
+        check(not launches[name], f"{name} launched {launches[name]}")
+    rec = dict(walls=walls, launches=launches, loss_drop=drop,
+               decode_attention_want=want, phase_s=time.perf_counter() - t_phase)
+    log(f"examples: phase {rec['phase_s']:.1f} s, every line and launch count as expected")
+    return rec
+
+
+def examples_launches(entry, launches):
+    """A kernels entry's launches on the examples phase's card runs: its
+    own name's count, or its kernel's (decode_attention's shapes); the wide
+    attention source (head_dim > 512) runs on no example."""
+    total = 0
+    for counts in launches.values():
+        if entry["name"] in counts:
+            total += counts[entry["name"]]
+        elif not entry["source"].endswith("decode_attn_wide.cu"):
+            total += counts.get(entry["name"].split(".")[0], 0)
+    return total
+
+
 # ---------------------------------------------------- the LM dry-run
 
 
@@ -3855,8 +4008,6 @@ def main(argv=None) -> int:
     analysis, bindings = phase_analysis(smi)
     pool = None
     if not args.lm_only:
-        from concurrent.futures import ThreadPoolExecutor
-
         from repro_torch.graph.generate import rmat
 
         # The full-width R-MAT graph (host numpy, 4-5 minutes, set-up) is
@@ -3867,6 +4018,11 @@ def main(argv=None) -> int:
         graph = pool.submit(timed, rmat, num_edges=1 << args.full_log2_edges, **FULL)
     child_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_lm_dryrun_"))
     lm_train = None
+    hash_checks = []
+    # The hash family's host checks (numpy, ~1-2 minutes in one thread) run
+    # in these threads, one a partitioner, beside the graph dry-run and the LM
+    # phases; joined before the kernels line.
+    host_pool = ThreadPoolExecutor(max_workers=len(HASH_FAMILY))
     try:
         build_s = phase_build()
         record = dict(card=smi, build_s=build_s)
@@ -3883,8 +4039,9 @@ def main(argv=None) -> int:
             # thread ends (its figures are the card's: CUDA events a step).
             lm_train = phase_lm_train(dev)
             torch.cuda.empty_cache()
+            record["examples"] = phase_examples()
             record["commit_tiled"] = phase_commit_tiled(dev)
-            record["full"], kernels = phase_full(dev, graph)
+            record["full"], kernels, hash_checks = phase_full(dev, graph, host_pool)
             next(e for e in kernels if e["name"] == "ebg_commit")["tiled"] = (
                 record["commit_tiled"]["entries"])
     finally:
@@ -3914,6 +4071,17 @@ def main(argv=None) -> int:
         lm_train = phase_lm_train(dev)
     for e in kernels:  # the training path's: 0 for every kernel (checked in the phase)
         e["lm_train_launches"] = lm_train["launches"].get(e["name"].split(".")[0], 0)
+    if hash_checks:  # a failed host check fails the run here
+        t = time.perf_counter()
+        stage_s = record["full"]["stage_s"]
+        stage_s["hash_family_checks"] = max(f.result() for f in hash_checks)
+        stage_s["hash_family_checks_wait"] = time.perf_counter() - t
+        log(f"full: the hash family's host checks took {stage_s['hash_family_checks']:.1f} s "
+            f"in their threads; waited {stage_s['hash_family_checks_wait']:.1f} s")
+    host_pool.shutdown(wait=False)
+    if "examples" in record:
+        for e in kernels:  # the examples phase's card runs
+            e["examples_launches"] = examples_launches(e, record["examples"]["launches"])
     check_analysis_after(analysis, bindings, captured=not args.lm_only)
     total = time.perf_counter() - t0
     OUT_DIR.mkdir(exist_ok=True)
@@ -3932,6 +4100,11 @@ def main(argv=None) -> int:
             "capture_s")}}))
     if "graph_dryrun" in record:
         print(json.dumps({"graph_dryrun": dict(record["graph_dryrun"], card=smi)}))
+    if "examples" in record:
+        ex = record["examples"]
+        print(json.dumps({"examples": dict(walls_s=ex["walls"], launches=ex["launches"],
+                                           loss_drop=ex["loss_drop"], phase_s=ex["phase_s"],
+                                           card=smi)}))
     print(json.dumps({"lm_dryrun": lm_dryrun_line(record["lm_dryrun"])}))
     print(json.dumps({"lm_serve": lm_line(lm, smi)}))
     print(json.dumps({"lm_families": families_line(families, smi)}))

@@ -1,0 +1,8 @@
+"""The benchmark's tests import `bench` and the program from the checkout."""
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[2]
+for path in (str(ROOT / "src"), str(ROOT)):
+    if path not in sys.path:
+        sys.path.insert(0, path)
